@@ -23,12 +23,20 @@
 //
 // The optional sys_out receives the input rows as they are read, so an
 // encode writes systematic and parity rows of [B, k+m, n] in one pass.
+//
+// Tables above the default 48 KB of dynamic shared memory are admitted
+// by raising the kernel's limit (cudaFuncSetAttribute) up to the 227 KB
+// a block may use, e.g. RS(64,64) with 128 KB of tables; the wrapper
+// (ops/rs_kernel.py) splits larger matrices into launches over slices of
+// the output rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t mul_word(const uint8_t* lo,
                                              const uint8_t* hi,
@@ -117,20 +125,38 @@ __global__ void gf_apply_kernel(const uint8_t* __restrict__ tables,
 
 // tables: [r, q, 2, 16] u8 on the device; data [B, q, n] and out [B, r, n]
 // (sys_out [B, q, n] or null) u8 with unit stride along n and the given
-// batch and row strides in bytes. vec != 0 promises that every base
-// pointer and stride is a multiple of 16. Returns cudaGetLastError().
+// batch and row strides in bytes; r * q * 32 bytes of tables at most
+// 227 KB. vec != 0 promises that every base pointer and stride is a
+// multiple of 16. Returns the first CUDA error of the attribute and launch
+// calls.
 extern "C" int gf_apply(const void* tables, const void* data, void* out,
                         void* sys_out, int B, int q, int r, long long n,
                         long long in_bs, long long in_rs, long long out_bs,
                         long long out_rs, long long sys_bs, long long sys_rs,
                         int vec, void* stream) {
   if (B <= 0 || n <= 0 || q <= 0) return 0;
+  const size_t smem = static_cast<size_t>(r) * q * 32;
+  if (smem > kDefaultSmem) {
+    // raised once per device and size, so that a CUDA graph capture of a
+    // warmed-up launch makes no attribute call
+    static size_t attr[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+    if (smem > attr[dev]) {
+      err = cudaFuncSetAttribute(gf_apply_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attr[dev] = smem;
+    }
+  }
   const long long chunks = (n + 15) / 16;
   long long gx = (chunks + kThreads - 1) / kThreads;
   if (gx > 65535) gx = 65535;
   const int gy = B < 65535 ? B : 65535;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  const size_t smem = static_cast<size_t>(r) * q * 32;
   gf_apply_kernel<<<grid, kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tables), static_cast<const uint8_t*>(data),

@@ -45,16 +45,19 @@ def digest(fragments, tags, idx, nu, r, mu, sigma) -> str:
     return h.hexdigest()
 
 
-def run_port(device) -> tuple[str, bool]:
-    """The port at the known-answer configuration on ``device``:
-    (digest, whether the aggregated proof verified)."""
+def run_port(device, strategy: str | None = None) -> tuple[str, bool]:
+    """The port at the known-answer configuration on ``device`` under the
+    codec ``strategy`` (the fragments are the same bytes under every
+    strategy, so so is the digest): (digest, whether the aggregated proof
+    verified)."""
     import torch
 
     from .models.pipeline import PipelineConfig, StoragePipeline
     from .ops import podr2
 
     dev = torch.device(device)
-    cfg = PipelineConfig(k=K, m=M, segment_size=SEGMENT_SIZE)
+    cfg = PipelineConfig(k=K, m=M, segment_size=SEGMENT_SIZE,
+                         strategy=strategy)
     key = podr2.Podr2Key.generate(KEY_SEED, device=dev)
     pipe = StoragePipeline(cfg, podr2_key=key, device=dev)
     out = pipe(torch.from_numpy(segments()).to(dev))

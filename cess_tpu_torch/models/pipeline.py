@@ -4,9 +4,11 @@ The counterpart of ``cess_tpu/models/pipeline.py``: the data plane a
 user's upload goes through. A batch of segments [B, segment_size] uint8
 becomes fragments [B, k+m, fragment_size] (the k systematic row slices
 of each segment, then m parity rows) and per-fragment tags [B, k+m,
-blocks, limbs]. On the card that is three kernel launches: ``gf_apply``
-(systematic copy and parity in one pass), ``prf_blocks`` (the per-block
-PRF) and ``podr2_tag``.
+blocks, limbs]. On the card that is three kernel launches: the parity
+apply of ``PipelineConfig.strategy`` (systematic copy and parity in one
+pass: ``gf_apply`` under the dense strategies, ``gf_xor`` under "xor",
+either under "auto" by the cost model, see ``ops/rs.py``), ``prf_blocks``
+(the per-block PRF) and ``podr2_tag``.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from torch import nn
 
 from .. import constants
 from .._device import resolve_device
-from ..ops import gf, podr2
+from ..ops import gf, podr2, rs_xor, xor_sched
+from ..ops.rs import STRATEGIES, default_strategy, uses_xor
 from ..ops.rs_kernel import gf_apply, tables
 
 
@@ -27,6 +30,7 @@ class PipelineConfig:
     k: int = constants.REF_K
     m: int = constants.REF_M
     segment_size: int = constants.SEGMENT_SIZE
+    strategy: str | None = None  # None: the dense kernel (rs.default_strategy)
     sectors: int = podr2.SECTORS  # PoDR2 block geometry
 
     @property
@@ -45,10 +49,12 @@ class StoragePipeline(nn.Module):
     """Batched segment -> fragment encode and PoDR2 tag step.
 
     The parity tables and the key (alpha, PRF key words) are buffers, so
-    ``.to(device)`` moves all of them; the tag kernel's weights are
-    derived from alpha whenever the key is read, so they cannot drift
-    from it. Without ``podr2_key`` the key is ``Podr2Key.generate(0)``, the TPU
-    package's default."""
+    ``.to(device)`` moves all of them; under "xor" and "auto" the parity
+    matrix's XOR schedule is staged as the non-persistent buffer
+    ``parity_ops``. The tag kernel's weights are derived from alpha
+    whenever the key is read, so they cannot drift from it. Without
+    ``podr2_key`` the key is ``Podr2Key.generate(0)``, the TPU package's
+    default."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  podr2_key: podr2.Podr2Key | None = None, device=None):
@@ -61,8 +67,17 @@ class StoragePipeline(nn.Module):
             raise ValueError(f"key has {key.alpha.shape[0]} sectors, config "
                              f"{config.sectors}")
         key = key.to(dev)
-        self.register_buffer("parity_tables", tables(
-            gf.cauchy_parity_matrix(config.k, config.m), dev))
+        self.strategy = config.strategy or default_strategy(dev)
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {self.strategy!r}")
+        mat = gf.cauchy_parity_matrix(config.k, config.m)
+        self.register_buffer("parity_tables", tables(mat, dev))
+        self.parity_sched = None
+        if self.strategy in ("xor", "auto"):
+            self.parity_sched = xor_sched.compile_schedule(
+                gf.expand_bitmatrix(mat))
+            self.register_buffer("parity_ops", rs_xor.stage_ops(
+                self.parity_sched, dev), persistent=False)
         self.register_buffer("alpha", key.alpha)
         self.register_buffer("prf_key", key.prf_key)
 
@@ -85,8 +100,12 @@ class StoragePipeline(nn.Module):
         data = segments.contiguous().view(b, cfg.k, cfg.fragment_size)
         out = torch.empty((b, cfg.k + cfg.m, cfg.fragment_size),
                           dtype=torch.uint8, device=self.device)
-        gf_apply(self.parity_tables, data, out=out[:, cfg.k:],
-                 sys_out=out[:, :cfg.k])
+        if uses_xor(self.strategy, self.parity_sched, data.shape):
+            rs_xor.gf_xor(self.parity_sched, self.parity_ops, data,
+                          out=out[:, cfg.k:], sys_out=out[:, :cfg.k])
+        else:
+            gf_apply(self.parity_tables, data, out=out[:, cfg.k:],
+                     sys_out=out[:, :cfg.k])
         return out
 
     def tag_step(self, fragments: torch.Tensor,

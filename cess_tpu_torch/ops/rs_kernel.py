@@ -6,7 +6,11 @@ matrix given as its split nibble tables ``[r, q, 2, 16]`` (``lo`` then
 ``hi``, see ``gf.nibble_tables``). A CUDA tensor goes to the kernel in
 ``csrc/gf_apply.cu``; a CPU tensor goes to ``gf_apply_plain``, the
 gather formulation in torch. ``gf_apply.launches`` counts kernel
-launches.
+launches (see ``count_launch``).
+
+The kernel keeps the tables in shared memory, up to the 227 KB a block
+may use (``SMEM_BYTES``); a larger matrix is applied by launches over
+slices of its output rows, so every RS(k, m) with k + m <= 256 runs.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import torch
 
 from .. import _build
 from . import gf
+
+SMEM_BYTES = 232448   # 227 KB of shared memory a Hopper block may use
 
 _C = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -54,7 +60,20 @@ def gf_apply_plain(tab: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return acc.permute(1, 0, 2)
 
 
-def _check(t: torch.Tensor, name: str, shape, device) -> None:
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``.
+    Inside a CUDA graph capture the kernel only enters the graph: it is
+    counted in ``wrapper.captured`` instead, and each replay of the graph
+    counts it as launched (``rs.py``'s warm programs)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
+def check_view(t: torch.Tensor, name: str, shape, device) -> None:
+    """Raise unless ``t`` is a uint8 view of ``shape`` on ``device`` with
+    unit stride along its last axis."""
     if t.dtype != torch.uint8:
         raise TypeError(f"{name} must be uint8, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -82,13 +101,13 @@ def gf_apply(tab: torch.Tensor, data: torch.Tensor,
     r, q = tab.shape[:2]
     b, _, n = data.shape
     dev = data.device
-    _check(tab, "tables", tab.shape, dev)
-    _check(data, "data", (b, q, n), dev)
+    check_view(tab, "tables", tab.shape, dev)
+    check_view(data, "data", (b, q, n), dev)
     if out is None:
         out = torch.empty((b, r, n), dtype=torch.uint8, device=dev)
-    _check(out, "out", (b, r, n), dev)
+    check_view(out, "out", (b, r, n), dev)
     if sys_out is not None:
-        _check(sys_out, "sys_out", (b, q, n), dev)
+        check_view(sys_out, "sys_out", (b, q, n), dev)
     if dev.type == "cpu":
         if r:
             out.copy_(gf_apply_plain(tab, data))
@@ -97,25 +116,32 @@ def gf_apply(tab: torch.Tensor, data: torch.Tensor,
         return out
     if dev.type != "cuda":
         raise ValueError(f"gf_apply runs on cuda or cpu tensors, not {dev}")
-    if r * q * 32 > 48 * 1024:
-        raise ValueError(f"GF matrix {r}x{q} exceeds the kernel's 48 KiB "
-                         "of shared-memory tables")
     if b == 0 or n == 0:
         return out
+    # output rows per launch: each launch's tables fit in shared memory
+    step = SMEM_BYTES // (max(q, 1) * 32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i0 in range(0, max(r, 1), step):
+            _launch(tab[i0:i0 + step], data, out[:, i0:i0 + step],
+                    sys_out if i0 == 0 else None, stream)
+    return out
+
+
+def _launch(tab, data, out, sys_out, stream) -> None:
+    b, q, n = data.shape
     views = [data, out] + ([sys_out] if sys_out is not None else [])
     vec = all(v.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in v.stride()[:2])
               for v in views)
     sys_ptr = sys_out.data_ptr() if sys_out is not None else None
     sys_bs, sys_rs = sys_out.stride()[:2] if sys_out is not None else (0, 0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel()(tab.data_ptr(), data.data_ptr(), out.data_ptr(),
-                       sys_ptr, b, q, r, n, data.stride(0), data.stride(1),
-                       out.stride(0), out.stride(1), sys_bs, sys_rs,
-                       int(vec), stream)
+    rc = _kernel()(tab.data_ptr(), data.data_ptr(), out.data_ptr(), sys_ptr,
+                   b, q, tab.shape[0], n, data.stride(0), data.stride(1),
+                   out.stride(0), out.stride(1), sys_bs, sys_rs, int(vec),
+                   stream)
     _build.check(rc, "gf_apply")
-    gf_apply.launches += 1
-    return out
+    count_launch(gf_apply)
 
 
 gf_apply.launches = 0
+gf_apply.captured = 0

@@ -10,7 +10,10 @@ limit):
 
 1. build: nvcc builds ``cess_tpu_torch/csrc/*.cu`` for sm_90a;
 2. kernels: each kernel against its plain PyTorch version on the card,
-   byte-exact, at the main path's shapes;
+   byte-exact, at the main paths' shapes (``gf_apply`` also at RS(64,64)
+   and RS(128,128); ``gf_xor`` on the RS(4,8) encode and decode, the
+   RS(2,1) repair, the [1, 2] symbol fold, a ragged n and an unaligned
+   view);
 3. main path: ``StoragePipeline`` RS(2,1) on 32 segments of 16 MiB (a
    512 MiB upload, 96 fragments of 8 MiB), one audit round (challenge,
    aggregation coefficients, aggregated proof, verification), a
@@ -19,10 +22,20 @@ limit):
    and read just after;
 4. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-5. known answer: the port at ``cess_tpu_torch.kat``'s configuration
-   reproduces the digest the test suite computes with the TPU package;
-6. kernel times (median of 20 launches, CUDA events) beside the plain
-   versions' times and each kernel's bound.
+5. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+   segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
+   pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
+   strategy="xor")`` rebuilds lost fragment 0 of every segment from
+   (1, 3, 5, 9) by reconstruct, by a four-hop symbol chain and by a
+   warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
+   at 32. Counters are zeroed just before; ``gf_apply`` must not launch
+   in the xor forward;
+6. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+   reproduces the digest the test suite computes with the TPU package,
+   under the dense strategy and under "xor";
+7. kernel times (median of 20 launches, CUDA events) beside the plain
+   versions' times and each kernel's bound, and ``gf_xor`` beside
+   ``gf_apply`` on the same RS(4,8) encode (the "auto" verdict).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -103,6 +116,7 @@ def event_ms(fn, runs: int) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -110,8 +124,8 @@ def main() -> int:
         return 2
     from cess_tpu_torch import _build, kat
     from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
-    from cess_tpu_torch.ops import gf, podr2, prf
-    from cess_tpu_torch.ops import rs_kernel, podr2_kernel
+    from cess_tpu_torch.ops import gf, podr2, prf, regen
+    from cess_tpu_torch.ops import rs_kernel, podr2_kernel, rs_xor, xor_sched
     from cess_tpu_torch.ops.rs import TorchCodec
 
     dev = torch.device("cuda", 0)
@@ -122,8 +136,16 @@ def main() -> int:
         "gf_apply": rs_kernel.gf_apply,
         "podr2_tag": podr2_kernel.podr2_tag,
         "prf_blocks": podr2_kernel.prf_blocks,
+        "gf_xor": rs_xor.gf_xor,
     }
     errs = {name: 0 for name in kernels}
+
+    def zero_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -159,8 +181,51 @@ def main() -> int:
         gf_case(gf.cauchy_parity_matrix(2, 1), 32, 8 * MIB, 1, True),
         gf_case(gf.cauchy_parity_matrix(4, 8), 8, 4 * MIB, 2, True),
         gf_case(gf.decode_matrix(4, 8, (4, 5, 6, 7)), 8, 4 * MIB, 3, False),
+        # 128 KB of tables (one launch) and 512 KB (split over output rows)
+        gf_case(gf.cauchy_parity_matrix(64, 64), 2, MIB, 10, True),
+        gf_case(gf.cauchy_parity_matrix(128, 128), 2, 64 * 1024, 11, True),
     ]
     torch.cuda.empty_cache()
+
+    def xor_case(mat, b, n, seed, encode, cut=2, unaligned=False):
+        """gf_xor on [b, q, n] against its plain version on ``cut`` rows
+        at each end of the batch."""
+        r, q = mat.shape
+        sched = xor_sched.compile_schedule(gf.expand_bitmatrix(mat))
+        ops = rs_xor.stage_ops(sched, dev)
+        data = rand_bytes((b, q, n), seed, dev)
+        if unaligned:
+            view = torch.empty((b, q, n + 1), dtype=torch.uint8,
+                               device=dev)[:, :, 1:]
+            view.copy_(data)
+            got = rs_xor.gf_xor(sched, ops, view)
+        elif encode:
+            out = torch.empty((b, q + r, n), dtype=torch.uint8, device=dev)
+            rs_xor.gf_xor(sched, ops, data, out=out[:, q:], sys_out=out[:, :q])
+            torch.cuda.synchronize()
+            check(torch.equal(out[:, :q], data), "gf_xor systematic copy")
+            got = out[:, q:]
+        else:
+            got = rs_xor.gf_xor(sched, ops, data)
+        rows = sorted(set(range(min(cut, b))) | set(range(max(b - cut, 0), b)))
+        want = rs_xor.xor_apply_plain(sched, data[rows])
+        e = max_err(got[rows], want)
+        errs["gf_xor"] = max(errs["gf_xor"], e)
+        check(e == 0, f"gf_xor {r}x{q} n={n} differs from its plain version")
+        del data, got, want
+        torch.cuda.empty_cache()
+        return (f"{r}x{q} [{b}, {q}, {n}]{' unaligned' if unaligned else ''}"
+                f" T={rs_xor.threads_for(sched)}")
+
+    xdone = [
+        xor_case(gf.cauchy_parity_matrix(4, 8), 32, 4 * MIB, 20, True),
+        xor_case(gf.decode_matrix(4, 8, (4, 5, 6, 7)), 32, 4 * MIB, 21, False),
+        xor_case(gf.repair_matrix(2, 1, (1, 2), (0,)), 32, 8 * MIB, 22, False),
+        xor_case(np.array([[1, 213]], dtype=np.uint8), 32, 4 * MIB, 23, False),
+        xor_case(gf.cauchy_parity_matrix(4, 8), 3, 4 * MIB + 3, 24, True),
+        xor_case(gf.cauchy_parity_matrix(4, 8), 3, 4 * MIB + 3, 25, False,
+                 unaligned=True),
+    ]
     key0 = podr2.Podr2Key.generate(0, device=dev)
     sub_f, blocks = 6, 8 * MIB // podr2.BLOCK_BYTES
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -186,6 +251,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"phase kernels: gf_apply {', '.join(done)} byte-exact; "
+          f"gf_xor {'; '.join(xdone)} byte-exact; "
           f"prf_blocks and podr2_tag byte-exact on {sub_f} fragments x "
           f"{blocks} blocks {tag}")
 
@@ -201,8 +267,7 @@ def main() -> int:
                                         device=dev)], dim=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts()
 
     t0 = time.perf_counter()
     out = pipe(segments)
@@ -248,8 +313,9 @@ def main() -> int:
     torch.cuda.synchronize()
     repair_s = time.perf_counter() - t0
     check(torch.equal(rebuilt, frags[:, :1]), "repaired fragment differs")
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    check(all(v > 0 for v in launches.values()),
+    launches = counts()
+    main_kernels = ("gf_apply", "podr2_tag", "prf_blocks")
+    check(all(launches[k] > 0 for k in main_kernels),
           f"a kernel was not launched on the main path: {launches}")
     print(f"phase main: RS(2,1) {b} x 16 MiB segments ({b * 16} MiB) -> "
           f"{nfrag} fragments; forward {fwd_s * 1e3:.3f} ms, audit round "
@@ -264,8 +330,7 @@ def main() -> int:
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
     seg8 = rand_bytes((b8, cfg8.segment_size), 7, dev)
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out8 = pipe8(seg8)
     torch.cuda.synchronize()
@@ -286,20 +351,100 @@ def main() -> int:
     decoded = codec8.decode_data(out8["fragments"][:, 4:8], (4, 5, 6, 7))
     check(torch.equal(decoded, seg8.view(b8, 4, -1)),
           "RS(4,8) decode from four parity fragments differs")
-    launches8 = {name: fn.launches for name, fn in kernels.items()}
+    launches8 = counts()
     print(f"phase rs48: RS(4,8) {b8} x 16 MiB segments -> {n8} fragments of "
           f"4 MiB; forward {fwd8_s * 1e3:.3f} ms; audit verify true; 4-erasure "
           f"decode byte-exact; launches {launches8} {tag}")
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 5. known answer -------------------------------------------------------
-    digest, kat_ok = kat.run_port(dev)
-    check(kat_ok, "known-answer proof did not verify")
-    check(digest == kat.DIGEST, f"known-answer digest {digest} != {kat.DIGEST}")
-    print(f"phase kat: digest {digest} matches the TPU package's")
+    # 5. the xor path: RS(4,8) under strategy "xor", audited and repaired --
+    bx = 32
+    cfgx = PipelineConfig(k=4, m=8, strategy="xor")
+    nx = cfgx.fragment_size
+    segx = rand_bytes((bx, cfgx.segment_size), 12, dev)
+    dense = StoragePipeline(PipelineConfig(k=4, m=8), device=dev)(segx)
+    pipex = StoragePipeline(cfgx, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    outx = pipex(segx)
+    torch.cuda.synchronize()
+    fwdx_s = time.perf_counter() - t0
+    fwd_launches = counts()
+    check(fwd_launches["gf_xor"] > 0 and fwd_launches["gf_apply"] == 0,
+          f"the xor forward did not run on gf_xor alone: {fwd_launches}")
+    fragsx = outx["fragments"]
+    check(torch.equal(fragsx, dense["fragments"]),
+          "xor fragments differ from the dense pipeline's")
+    check(torch.equal(outx["tags"], dense["tags"]),
+          "xor tags differ from the dense pipeline's")
+    del dense
+    nfx = bx * 12
+    idsx = torch.stack([torch.arange(nfx, device=dev),
+                        torch.zeros(nfx, dtype=torch.int64, device=dev)], dim=1)
+    blocksx = cfgx.blocks_per_fragment
+    seedx = b"chip-smoke-round-xor"
+    idxx, nux = podr2.gen_challenge(seedx, blocksx, device=dev)
+    rx = podr2.aggregate_coeffs(seedx, idsx, device=dev)
+    mux, sgx = podr2.prove_aggregate(fragsx.view(nfx, -1),
+                                     outx["tags"].view(nfx, blocksx, 2),
+                                     idxx, nux, rx)
+    check(bool(podr2.verify_aggregate(pipex.podr2_key, idsx, blocksx, idxx,
+                                      nux, rx, mux, sgx)),
+          "xor-path aggregated proof did not verify")
+    codecx = regen.RegenCodec(4, 8, device=dev, strategy="xor")
+    present, lost = (1, 3, 5, 9), fragsx[:, :1]
+    surv = fragsx[:, list(present)]
+    t0 = time.perf_counter()
+    rebuilt = codecx.reconstruct(surv, present, (0,))
+    torch.cuda.synchronize()
+    repairx_s = time.perf_counter() - t0
+    check(torch.equal(rebuilt, lost), "regen reconstruct differs")
+    coeffs = codecx.repair_coeffs(present, (0,))
+    acc = torch.zeros_like(lost)
+    for p, row in enumerate(present):
+        acc = codecx.fold_symbol(
+            torch.cat([acc, fragsx[:, row:row + 1]], dim=1), coeffs[p])
+    check(torch.equal(acc, lost), "four-hop symbol chain differs")
+    codecx.warm_reconstruct(present, (0,), surv.shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = codecx.reconstruct(surv, present, (0,))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(codecx.warm_hits == 1, f"warm_hits {codecx.warm_hits} != 1")
+    check(torch.equal(warm, lost), "warm (CUDA graph) reconstruct differs")
+    auto = TorchCodec(4, 8, device=dev, strategy="auto")
+    verdicts = [dict(auto.program_meta("encode", shape=(rows, 4, nx)))[
+        "strategy"] for rows in (1, 32)]
+    check(verdicts == ["auto:dense", "auto:xor"],
+          f"auto verdicts {verdicts} != ['auto:dense', 'auto:xor']")
+    launchesx = counts()
+    xor_kernels = ("gf_xor", "podr2_tag", "prf_blocks")
+    check(all(launchesx[k] > 0 for k in xor_kernels),
+          f"a kernel was not launched on the xor path: {launchesx}")
+    print(f"phase xor: RS(4,8) strategy xor {bx} x 16 MiB segments "
+          f"({bx * 16} MiB) -> {nfx} fragments of 4 MiB; forward "
+          f"{fwdx_s * 1e3:.3f} ms, fragments and tags byte-equal to the dense "
+          f"pipeline; audit verify true; regen reconstruct of fragment 0 from "
+          f"{present} {repairx_s * 1e3:.3f} ms, 4-hop symbol chain and warm "
+          f"CUDA-graph reconstruct ({warm_s * 1e3:.3f} ms, warm_hits 1) "
+          f"byte-exact; auto at 1 and 32 rows: {verdicts}; forward launches "
+          f"{fwd_launches}; phase launches {launchesx} {tag}")
+    del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
+    torch.cuda.empty_cache()
 
-    # 6. kernel times at the main path's shapes -----------------------------
+    # 6. known answer -------------------------------------------------------
+    for strategy in (None, "xor"):
+        digest, kat_ok = kat.run_port(dev, strategy)
+        check(kat_ok, f"known-answer proof did not verify ({strategy})")
+        check(digest == kat.DIGEST,
+              f"known-answer digest {digest} != {kat.DIGEST} ({strategy})")
+    print(f"phase kat: digest {digest} matches the TPU package's, dense and "
+          f"xor")
+
+    # 7. kernel times at the main paths' shapes ----------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -309,7 +454,14 @@ def main() -> int:
     w = pipe.podr2_key.weights
     prf_lm = podr2_kernel.prf_blocks(pipe.prf_key, id_pairs, None, blocks, 2,
                                      limb_major=True)
+    datax = rand_bytes((bx, 4, nx), 13, dev)
+    encx = torch.empty((bx, 12, nx), dtype=torch.uint8, device=dev)
+    schedx, opsx = pipex.parity_sched, pipex.parity_ops
     runs = {
+        "gf_xor": (
+            lambda: rs_xor.gf_xor(schedx, opsx, datax, out=encx[:, 4:],
+                                  sys_out=encx[:, :4]),
+            lambda: rs_xor.xor_apply_plain(schedx, datax)),
         "gf_apply": (
             lambda: rs_kernel.gf_apply(tab, data, out=enc[:, cfg.k:],
                                        sys_out=enc[:, :cfg.k]),
@@ -337,6 +489,12 @@ def main() -> int:
         # multiply and one add per byte and limb
         "podr2_tag": (nfrag * n + w.numel() * 4 + 2 * tag_out,
                       nfrag * n * 2 * 2),
+        # bytes: data in, systematic + parity out; ops: per 4-byte lane the
+        # schedule's XORs, shift and mask per input plane, shift and or per
+        # output plane
+        "gf_xor": (bx * 4 * nx + bx * 12 * nx,
+                   bx * nx // 4 * (schedx.n_xors + 2 * schedx.q8
+                                   + 2 * schedx.r8)),
     }
     sources = {
         "gf_apply": ("cess_tpu_torch/csrc/gf_apply.cu",
@@ -345,14 +503,18 @@ def main() -> int:
                       "cess_tpu/ops/podr2_pallas.py:67"),
         "prf_blocks": ("cess_tpu_torch/csrc/podr2_tag.cu",
                        "cess_tpu/ops/podr2.py:170"),
+        "gf_xor": ("cess_tpu_torch/csrc/gf_xor.cu",
+                   "cess_tpu/ops/rs_xor.py:96"),
     }
+    # the path whose run gives each kernel's launches
+    path_launches = {**launches, "gf_xor": launchesx["gf_xor"]}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int_ops_per_s = sms * INT32_LANES_PER_SM * BOOST_HZ
     print(f"bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM; "
           f"{int_ops_per_s / 1e12:.3f} T int32 ops/s ({sms} SMs x "
           f"{INT32_LANES_PER_SM} lanes x {BOOST_HZ / 1e9:.2f} GHz) {tag}")
     record = []
-    for name in ("gf_apply", "podr2_tag", "prf_blocks"):
+    for name in ("gf_apply", "podr2_tag", "prf_blocks", "gf_xor"):
         kern, plain = runs[name]
         ms = event_ms(kern, TIMED_LAUNCHES)
         plain_ms = event_ms(plain, 3)
@@ -363,7 +525,7 @@ def main() -> int:
         bound_ms = max(t_bytes, t_ops)
         record.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "replaces": sources[name][1], "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -371,6 +533,23 @@ def main() -> int:
         print(f"time {name}: {ms:.4f} ms (median of {TIMED_LAUNCHES}), plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
               f"{record[-1]['bound_by']}, roofline share {bound_ms / ms:.1%} {tag}")
+    # the "auto" verdict on this card: both lowerings of the RS(4,8) encode
+    # on the same data, in turns (dense, xor, xor, dense)
+    tabx = rs_kernel.tables(gf.cauchy_parity_matrix(4, 8), dev)
+    dense_run = lambda: rs_kernel.gf_apply(tabx, datax, out=encx[:, 4:],
+                                           sys_out=encx[:, :4])
+    turns = [event_ms(fn, TIMED_LAUNCHES) for fn in
+             (dense_run, runs["gf_xor"][0], runs["gf_xor"][0], dense_run)]
+    dense_ms = statistics.median([turns[0], turns[3]])
+    xor_ms = statistics.median([turns[1], turns[2]])
+    dense_bound = max((bx * 4 * nx + bx * 12 * nx) / HBM_BYTES_PER_S,
+                      bx * nx * 8 * 4 * 4 / int_ops_per_s) * 1e3
+    print(f"auto verdict at RS(4,8) [{bx}, 4, {nx}] encode: gf_xor "
+          f"{turns[1]:.4f}/{turns[2]:.4f} ms, gf_apply {turns[0]:.4f}/"
+          f"{turns[3]:.4f} ms (turns dense, xor, xor, dense; bounds "
+          f"{record[-1]['bound_ms']:.4f} and {dense_bound:.4f} ms); the TPU "
+          f"cost model's 'xor' {'holds' if xor_ms < dense_ms else 'does not hold'}"
+          f" on this card {tag}")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

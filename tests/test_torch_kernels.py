@@ -12,10 +12,21 @@ import torch
 
 from cess_tpu_torch import kat
 from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
-from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, rs_kernel
+from cess_tpu_torch.ops import (gf, podr2, podr2_kernel, prf, regen, rs,
+                                rs_kernel, rs_xor, xor_sched)
 from cess_tpu_torch.ops.rs import TorchCodec
 
 pytestmark = pytest.mark.gpu
+
+XOR_MATRICES = {
+    "parity_2_1": gf.cauchy_parity_matrix(2, 1),
+    "parity_3_3": gf.cauchy_parity_matrix(3, 3),
+    "parity_4_8": gf.cauchy_parity_matrix(4, 8),
+    "parity_10_4": gf.cauchy_parity_matrix(10, 4),
+    "decode_4_8_from_parity": gf.decode_matrix(4, 8, (4, 5, 6, 7)),
+    "repair_2_1": gf.repair_matrix(2, 1, (1, 2), (0,)),
+    "symbol_213": np.array([[1, 213]], dtype=np.uint8),
+}
 
 
 @pytest.fixture
@@ -48,6 +59,87 @@ def test_gf_apply_matches_plain(cuda_device, k, m, n):
     view.copy_(data)
     assert torch.equal(rs_kernel.gf_apply(tab, view),
                        rs_kernel.gf_apply_plain(tab, data))
+
+
+@pytest.mark.parametrize("k,m", [(64, 64), (128, 128)])
+def test_gf_apply_wide_geometries(cuda_device, k, m):
+    """Tables above 48 KB (RS(64,64): 128 KB) and above 227 KB (RS(128,
+    128): 512 KB, split into launches over output rows) encode exactly."""
+    tab = rs_kernel.tables(gf.cauchy_parity_matrix(k, m), cuda_device)
+    data = rand((2, k, 1000), seed=k).to(cuda_device)
+    out = torch.empty((2, k + m, 1000), dtype=torch.uint8, device=cuda_device)
+    before = rs_kernel.gf_apply.launches
+    rs_kernel.gf_apply(tab, data, out=out[:, k:], sys_out=out[:, :k])
+    step = rs_kernel.SMEM_BYTES // (k * 32)
+    assert rs_kernel.gf_apply.launches == before + -(-m // step)
+    assert torch.equal(out[:, :k], data)
+    assert torch.equal(out[:, k:], rs_kernel.gf_apply_plain(tab, data))
+
+
+@pytest.mark.parametrize("name", sorted(XOR_MATRICES))
+@pytest.mark.parametrize("n", [4096, 701, 16])
+def test_gf_xor_matches_plain(cuda_device, name, n):
+    mat = XOR_MATRICES[name]
+    r, q = mat.shape
+    sched = xor_sched.compile_schedule(gf.expand_bitmatrix(mat))
+    ops = rs_xor.stage_ops(sched, cuda_device)
+    data = rand((3, q, n), seed=n + q).to(cuda_device)
+    want = rs_xor.xor_apply_plain(sched, data)
+    assert torch.equal(want, rs_kernel.gf_apply_plain(
+        rs_kernel.tables(mat, cuda_device), data))
+    out = torch.empty((3, q + r, n), dtype=torch.uint8, device=cuda_device)
+    before = rs_xor.gf_xor.launches
+    rs_xor.gf_xor(sched, ops, data, out=out[:, q:], sys_out=out[:, :q])
+    assert rs_xor.gf_xor.launches == before + 1
+    assert torch.equal(out[:, :q], data)
+    assert torch.equal(out[:, q:], want)
+    # an unaligned view takes the kernel's byte path
+    view = torch.empty((3, q, n + 1), dtype=torch.uint8,
+                       device=cuda_device)[:, :, 1:]
+    view.copy_(data)
+    assert torch.equal(rs_xor.gf_xor(sched, ops, view), want)
+    assert torch.equal(rs_xor.apply_schedule(sched, data.unsqueeze(0))[0],
+                       want)
+
+
+def test_gf_xor_without_output_rows(cuda_device):
+    """An empty schedule (RS(3,0) has no parity rows) only copies."""
+    codec = TorchCodec(3, 0, cuda_device, strategy="xor")
+    data = rand((2, 3, 100), seed=2).to(cuda_device)
+    assert torch.equal(codec.encode(data), data)
+
+
+def test_gf_xor_many_batch_rows(cuda_device):
+    sched = xor_sched.compile_schedule(
+        gf.expand_bitmatrix(XOR_MATRICES["symbol_213"]))
+    data = rand((70000, 2, 10), seed=7).to(cuda_device)
+    got = rs_xor.gf_xor(sched, rs_xor.stage_ops(sched, cuda_device), data)
+    assert torch.equal(got, rs_xor.xor_apply_plain(sched, data))
+
+
+@pytest.mark.parametrize("strategy", ["pallas", "xor", "auto"])
+def test_warm_graphs_equal_cold(cuda_device, strategy):
+    """A CUDA-graph warm reconstruct and warm fold replay to the bytes of
+    the cold path, count a hit, and count their kernels as launched."""
+    codec = regen.RegenCodec(4, 8, cuda_device, strategy=strategy)
+    coded = codec.encode(rand((8, 4, 4096), seed=9).to(cuda_device))
+    present, missing = (1, 3, 5, 9), (0,)
+    surv = coded[:, list(present)]
+    cold = codec.reconstruct(surv, present, missing)
+    codec.warm_reconstruct(present, missing, surv.shape)
+    apply_ = codec._matrix_for("repair", present, missing)
+    kernel = rs_xor.gf_xor if rs.uses_xor(strategy, apply_.sched, surv.shape) \
+        else rs_kernel.gf_apply
+    before = kernel.launches
+    warm = codec.reconstruct(surv, present, missing)
+    assert codec.warm_hits == 1
+    assert torch.equal(warm, cold) and torch.equal(warm, coded[:, :1])
+    assert kernel.launches == before + 1
+    pairs = torch.cat([coded[:, 2:3], coded[:, 5:6]], dim=1)
+    codec.warm_fold(7, pairs.shape)
+    assert torch.equal(codec.fold_symbol(pairs, 7), torch.from_numpy(
+        regen.fold_symbol_pairs(pairs.cpu().numpy(), 7)).to(cuda_device))
+    assert codec.warm_hits == 2
 
 
 def test_codec_on_card_matches_cpu(cuda_device):
@@ -94,5 +186,21 @@ def test_pipeline_on_card_matches_cpu(cuda_device):
         assert torch.equal(card[name].cpu(), cpu[name])
 
 
+def test_xor_pipeline_on_card_matches_cpu(cuda_device):
+    cfg = PipelineConfig(k=4, m=8, segment_size=64 * 1024, strategy="xor")
+    seg = rand((2, cfg.segment_size), seed=4)
+    before = rs_kernel.gf_apply.launches, rs_xor.gf_xor.launches
+    card = StoragePipeline(cfg, device=cuda_device)(seg.to(cuda_device))
+    assert rs_kernel.gf_apply.launches == before[0]
+    assert rs_xor.gf_xor.launches == before[1] + 1
+    cpu = StoragePipeline(cfg, device="cpu")(seg)
+    for name in ("fragments", "tags"):
+        assert torch.equal(card[name].cpu(), cpu[name])
+
+
 def test_known_answer_on_card(cuda_device):
     assert kat.run_port(cuda_device) == (kat.DIGEST, True)
+
+
+def test_known_answer_on_card_under_xor(cuda_device):
+    assert kat.run_port(cuda_device, strategy="xor") == (kat.DIGEST, True)

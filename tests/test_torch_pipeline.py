@@ -140,6 +140,8 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch, cess_tpu_torch.models.pipeline\n"
             "import cess_tpu_torch.convert, cess_tpu_torch.kat\n"
             "import cess_tpu_torch.ops.audit_backend, cess_tpu_torch.ops.rs\n"
+            "import cess_tpu_torch.ops.xor_sched, cess_tpu_torch.ops.rs_xor\n"
+            "import cess_tpu_torch.ops.rs_ref, cess_tpu_torch.ops.regen\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"
