@@ -25,7 +25,7 @@ from .. import _build
 from . import pfield as pf
 from . import prf as prf_mod
 
-MAX_LANES = 512       # 2 * sectors: one 512-byte block per warp
+MAX_LANES = 512       # 2 * sectors: 16 bytes of a block for each lane of a warp
 MAX_KERNEL_LIMBS = 4  # the tag kernel is instantiated for 1..4 limbs
 
 _C = ctypes.c_void_p

@@ -12,8 +12,9 @@ limit):
 2. kernels: each kernel against its plain PyTorch version on the card,
    byte-exact, at the main paths' shapes (``gf_apply`` also at RS(64,64)
    and RS(128,128); ``gf_xor`` on the RS(4,8) encode and decode, the
-   RS(2,1) repair, the [1, 2] symbol fold, a ragged n and an unaligned
-   view);
+   RS(2,1) repair, the [1, 2] symbol fold, a ragged n, an unaligned
+   view, and the RS(16,16) encode, the largest schedule that fits a
+   block);
 3. main path: ``StoragePipeline`` RS(2,1) on 32 segments of 16 MiB (a
    512 MiB upload, 96 fragments of 8 MiB), one audit round (challenge,
    aggregation coefficients, aggregated proof, verification), a
@@ -34,7 +35,9 @@ limit):
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
 7. kernel times (median of 20 launches, CUDA events) beside the plain
-   versions' times and each kernel's bound, and ``gf_xor`` beside
+   versions' times and each kernel's bound (``gf_xor``'s operations: per
+   32-byte group the schedule's XORs and the bit transposes of every
+   input and output row, ``rs_xor.kernel_ops``), and ``gf_xor`` beside
    ``gf_apply`` on the same RS(4,8) encode (the "auto" verdict).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
@@ -215,7 +218,7 @@ def main() -> int:
         del data, got, want
         torch.cuda.empty_cache()
         return (f"{r}x{q} [{b}, {q}, {n}]{' unaligned' if unaligned else ''}"
-                f" T={rs_xor.threads_for(sched)}")
+                f" T={rs_xor.threads_for(sched)} words={rs_xor.words(sched)}")
 
     xdone = [
         xor_case(gf.cauchy_parity_matrix(4, 8), 32, 4 * MIB, 20, True),
@@ -225,6 +228,7 @@ def main() -> int:
         xor_case(gf.cauchy_parity_matrix(4, 8), 3, 4 * MIB + 3, 24, True),
         xor_case(gf.cauchy_parity_matrix(4, 8), 3, 4 * MIB + 3, 25, False,
                  unaligned=True),
+        xor_case(gf.cauchy_parity_matrix(16, 16), 2, MIB, 26, True),
     ]
     key0 = podr2.Podr2Key.generate(0, device=dev)
     sub_f, blocks = 6, 8 * MIB // podr2.BLOCK_BYTES
@@ -489,12 +493,11 @@ def main() -> int:
         # multiply and one add per byte and limb
         "podr2_tag": (nfrag * n + w.numel() * 4 + 2 * tag_out,
                       nfrag * n * 2 * 2),
-        # bytes: data in, systematic + parity out; ops: per 4-byte lane the
-        # schedule's XORs, shift and mask per input plane, shift and or per
-        # output plane
+        # bytes: data in, systematic + parity out; ops: per 32-byte group
+        # the schedule's XORs and one 8-word bit transpose per input and
+        # output row
         "gf_xor": (bx * 4 * nx + bx * 12 * nx,
-                   bx * nx // 4 * (schedx.n_xors + 2 * schedx.q8
-                                   + 2 * schedx.r8)),
+                   bx * -(-nx // rs_xor.GROUP) * rs_xor.kernel_ops(schedx)),
     }
     sources = {
         "gf_apply": ("cess_tpu_torch/csrc/gf_apply.cu",

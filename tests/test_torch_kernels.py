@@ -77,8 +77,10 @@ def test_gf_apply_wide_geometries(cuda_device, k, m):
 
 
 @pytest.mark.parametrize("name", sorted(XOR_MATRICES))
-@pytest.mark.parametrize("n", [4096, 701, 16])
+@pytest.mark.parametrize("n", [4096, 4097, 701, 33, 31, 16])
 def test_gf_xor_matches_plain(cuda_device, name, n):
+    """Whole and ragged 32-byte groups (n on either side of a multiple of
+    32), the systematic copy in the same pass, and an unaligned view."""
     mat = XOR_MATRICES[name]
     r, q = mat.shape
     sched = xor_sched.compile_schedule(gf.expand_bitmatrix(mat))
@@ -155,11 +157,16 @@ def test_codec_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("limbs", [1, 2, 3, 4])
-@pytest.mark.parametrize("sectors", [256, 100])
-def test_tag_and_prf_match_plain(cuda_device, limbs, sectors):
+@pytest.mark.parametrize("sectors", [256, 255, 100, 1])
+@pytest.mark.parametrize("blocks", [37, 1000, 1001])
+def test_tag_and_prf_match_plain(cuda_device, limbs, sectors, blocks):
+    """Block counts whose F x blocks is and is not a multiple of the 8
+    blocks a warp takes, and block sizes that take the vector path (512
+    bytes) and the byte path (510, 200 and 2 bytes, lanes idle past the
+    end)."""
     params = podr2.Podr2Params(sectors=sectors, limbs=limbs)
     key = podr2.Podr2Key.generate(5, params, device=cuda_device)
-    lanes, blocks = 2 * sectors, 37
+    lanes = 2 * sectors
     ids = torch.randint(0, 1 << 32, (5, 2), dtype=torch.int64,
                         generator=torch.Generator().manual_seed(limbs))
     ids = ids.to(cuda_device)
@@ -168,7 +175,8 @@ def test_tag_and_prf_match_plain(cuda_device, limbs, sectors):
     want = prf.prf_plain(key.prf_key, ids, torch.arange(
         blocks, device=cuda_device), limbs)
     assert torch.equal(prf_lm, want.transpose(1, 2).to(torch.int32))
-    at = torch.tensor([3, 0, 36, 3], dtype=torch.int64, device=cuda_device)
+    at = torch.tensor([3, 0, blocks - 1, 3], dtype=torch.int64,
+                      device=cuda_device)
     assert torch.equal(podr2_kernel.prf_blocks(key.prf_key, ids, at, 4, limbs),
                        prf.prf_plain(key.prf_key, ids, at, limbs).to(torch.int32))
     data = rand((5, blocks, lanes), seed=limbs).to(cuda_device)

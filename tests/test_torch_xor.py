@@ -3,6 +3,8 @@
 ``StoragePipeline``) against the JAX package on the CPU. Inputs come from
 numpy seeds; every comparison is byte equality (tolerance 0): schedules,
 cost-model verdicts, fragments and digests are protocol facts."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from cess_tpu_torch.ops.rs import TorchCodec, make_codec
 
 GEOMETRIES = [(2, 1), (2, 2), (3, 3), (4, 8), (10, 4)]
 SEGMENT = 64 * 1024
+SLICED_N = [1, 31, 32, 33, 701, 4096]
 
 # each builds a GF matrix with the given package's gf module
 MATRICES = {
@@ -32,6 +35,13 @@ MATRICES = {
     "decode_4_8_from_parity": lambda g: g.decode_matrix(4, 8, (4, 5, 6, 7)),
     "symbol_213": lambda g: np.array([[1, 213]], dtype=np.uint8),
 }
+# the 32-byte plane executor runs every schedule above, the encode matrix
+# of every geometry, and one with COPY and ZERO ops (an identity row and a
+# zero row), which its uniform op list turns into XORs with the zero slot
+SLICED = {**MATRICES,
+          "parity_2_2": lambda g: g.cauchy_parity_matrix(2, 2),
+          "copy_zero": lambda g: np.array([[1, 0], [0, 0], [3, 7]],
+                                          dtype=np.uint8)}
 
 
 @pytest.fixture(autouse=True)
@@ -153,17 +163,108 @@ def test_gf_xor_wrapper_contract_on_the_cpu():
 
 
 def test_kernel_block_size_and_envelope():
-    """Lanes a block for the schedules of this slice, and the refusal,
-    naming the limit, of a schedule that does not fit at 32 lanes."""
-    assert rs_xor.threads_for(schedules("parity_4_8")[0]) == 256
+    """Threads a block (each takes a 32-byte group of every row) for the
+    schedules of this slice, the odd stride of a thread's address space,
+    the staged uniform op list, and the refusal, naming the limit, of a
+    schedule that does not fit at 32 threads."""
+    s48 = schedules("parity_4_8")[0]
+    assert (rs_xor.words(s48), rs_xor.threads_for(s48)) == (167, 256)
+    assert len(rs_xor.bundled_ops(s48)) == 4 * 95      # 374 ops, 98% full
+    assert rs_xor.smem_bytes(s48, 256) == 167 * 256 * 4 + 96 * 32
     assert rs_xor.threads_for(schedules("parity_10_4")[0]) == 128
-    ops = rs_xor.stage_ops(schedules("parity_2_1")[0], "cpu")
-    assert ops.dtype == torch.int16 and ops.shape == (23, 4)
+    assert rs_xor.kernel_ops(s48) == 374 + 72 * 12
+    s21 = schedules("parity_2_1")[0]
+    ops = rs_xor.stage_ops(s21, "cpu")
+    assert ops.dtype == torch.int16 and ops.shape == (28, 4)   # 7 bundles
+    assert rs_xor.words(s21) % 2 == 1
+    assert rs_xor.words(s21) > rs_xor.zero_slot(s21) == s21.out_base + s21.r8
+    assert ops[:, 3].eq(0).all()
+    sched = xor_sched.compile_schedule(gf.expand_bitmatrix(
+        SLICED["copy_zero"](gf)))
+    z = rs_xor.zero_slot(sched)
+    for (op, d, a, b), row in zip(sched.ops, rs_xor.uniform_ops(sched)):
+        assert tuple(row) == {xor_sched.OP_XOR: (d, a, b),
+                              xor_sched.OP_ACC: (d, d, a),
+                              xor_sched.OP_COPY: (d, a, z),
+                              xor_sched.OP_ZERO: (d, z, z)}[op]
+    assert {op[0] for op in sched.ops} >= {xor_sched.OP_COPY,
+                                           xor_sched.OP_ZERO}
     big = xor_sched.XorSchedule(r8=8, q8=8, n_scratch=2000, ops=(),
                                 n_xors=0, dense_xors=0, saving_frac=0.0,
                                 matrix_sha256="")
     with pytest.raises(ValueError, match=str(rs_xor.SMEM_BYTES)):
         rs_xor.threads_for(big)
+
+
+@pytest.mark.parametrize("name", sorted(SLICED))
+def test_bundles_compute_the_bitmatrix(name):
+    """The staged list holds each uniform op once, in bundles of
+    ``BUNDLE`` padded with ``zero ^ zero``. Run symbolically as the kernel
+    runs it (a bundle's loads, then its stores in order), each slot a
+    bitmask of input planes and every other slot but the zero slot
+    starting with a garbage bit of its own, every output equals its
+    bitmatrix row: no read moved ahead of its write."""
+    bmat = gf.expand_bitmatrix(SLICED[name](gf))
+    sched = xor_sched.compile_schedule(bmat)
+    z = rs_xor.zero_slot(sched)
+    staged = rs_xor.bundled_ops(sched).reshape(-1, rs_xor.BUNDLE, 3).tolist()
+    placed = [tuple(op) for bundle in staged for op in bundle
+              if tuple(op) != (z, z, z)]
+    assert sorted(placed) == sorted(
+        tuple(op) for op in rs_xor.uniform_ops(sched).tolist())
+    buf = [1 << i for i in range(z)] + [0]
+    for bundle in staged:
+        vals = [buf[a] ^ buf[b] for _, a, b in bundle]
+        for (d, _, _), v in zip(bundle, vals):
+            buf[d] = v
+    assert buf[z] == 0
+    for i in range(sched.r8):
+        want = sum(1 << j for j in np.flatnonzero(bmat[i]).tolist())
+        assert buf[sched.out_base + i] == want
+
+
+# -- the kernel's 32-byte plane layout, pinned on the CPU --------------------
+
+@pytest.mark.parametrize("n", SLICED_N)
+def test_planes32_round_trip_and_bit_order(n):
+    data = torch.from_numpy(rnd((2, 3, n), seed=n))
+    planes = rs_xor.planes32(data)
+    assert planes.shape == (2, 3, 8, -(-n // 32)) and planes.dtype == torch.int64
+    assert int(planes.min()) >= 0 and int(planes.max()) < 1 << 32
+    assert torch.equal(rs_xor.unplanes32(planes, n), data)
+    # bit b of byte 32g + 4k + e sits at bit 8e + k of plane b of group g
+    one = torch.zeros(n, dtype=torch.uint8)
+    t = n - 1
+    one[t] = 1 << (t % 8)
+    g, k, e = divmod(t, 32)[0], (t % 32) // 4, t % 4
+    want = torch.zeros((8, -(-n // 32)), dtype=torch.int64)
+    want[t % 8, g] = 1 << (8 * e + k)
+    assert torch.equal(rs_xor.planes32(one), want)
+
+
+@functools.lru_cache(maxsize=None)
+def _sliced_case(name):
+    """A schedule, data [2, q, 4096] and the TPU package's ``_apply_jnp``
+    on it; a narrower case is a prefix, since the map is column-wise."""
+    port = xor_sched.compile_schedule(gf.expand_bitmatrix(SLICED[name](gf)))
+    ref = jxor.compile_schedule(jgf.expand_bitmatrix(SLICED[name](jgf)))
+    data = rnd((2, port.q8 // 8, max(SLICED_N)), seed=port.n_xors)
+    u32 = np.ascontiguousarray(data).view(np.uint32)
+    want = np.asarray(jrs_xor._apply_jnp(ref, jax.numpy.asarray(u32)))
+    return port, data, np.ascontiguousarray(want).view(np.uint8)
+
+
+@pytest.mark.parametrize("n", SLICED_N)
+@pytest.mark.parametrize("name", sorted(SLICED))
+def test_sliced32_matches_plain_and_jax(name, n):
+    """The kernel's layout and op list (``xor_apply_sliced32``) against the
+    4-byte-lane plain version and the TPU package's jnp executor."""
+    sched, data, want = _sliced_case(name)
+    x = torch.from_numpy(data[..., :n].copy())
+    got = rs_xor.xor_apply_sliced32(sched, x)
+    assert got.shape == (2, sched.r8 // 8, n)
+    np.testing.assert_array_equal(got.numpy(), want[..., :n])
+    assert torch.equal(got, rs_xor.xor_apply_plain(sched, x))
 
 
 # -- the codec's strategies against TPUCodec --------------------------------
@@ -293,7 +394,8 @@ def test_pipeline_strategy_state_and_refusal():
     pipe = StoragePipeline(cfg, device="cpu")
     assert pipe.strategy == "xor"
     assert set(pipe.state_dict()) == {"parity_tables", "alpha", "prf_key"}
-    assert pipe.to("cpu").parity_ops.shape == (len(pipe.parity_sched.ops), 4)
+    assert pipe.to("cpu").parity_ops.shape == (
+        len(rs_xor.bundled_ops(pipe.parity_sched)), 4)
     seg = torch.from_numpy(rnd((2, SEGMENT), seed=12))
     assert torch.equal(pipe.encode_step(seg), StoragePipeline(
         PipelineConfig(k=4, m=8, segment_size=SEGMENT),
