@@ -36,29 +36,31 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def sources() -> list[Path]:
-    return sorted(SRC_DIR.glob("*.cu"))
+def sources(src_dir: Path = SRC_DIR) -> list[Path]:
+    return sorted(Path(src_dir).glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src_dir: Path = SRC_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources(src_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcess_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile and link the kernels unless this tree's library exists."""
+def build(src_dir: Path = SRC_DIR) -> Path:
+    """Compile and link the kernels of ``src_dir`` (this tree's by
+    default; another checkout's to time its kernels beside these) unless
+    their library exists."""
     global build_log
-    out = library_path()
+    out = library_path(src_dir)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     stem = out.stem
     objs, procs = [], []
-    for src in sources():
+    for src in sources(src_dir):
         # per-process object names: concurrent first uses do not collide
         obj = BUILD_DIR / f"{stem}_{src.stem}.{os.getpid()}.o"
         objs.append(obj)

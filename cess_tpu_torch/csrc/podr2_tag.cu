@@ -1,4 +1,4 @@
-// PoDR2 tag generation and the per-block threefry PRF (Hopper, sm_90a).
+// PoDR2 tag generation (Hopper, sm_90a).
 //
 // podr2_tag replaces the Pallas kernel
 // cess_tpu/ops/podr2_pallas.py::_kernel. For fragment f, block b and MAC
@@ -38,17 +38,8 @@
 // block size that is not a multiple of 16 or an unaligned pointer takes
 // a byte loop.
 //
-// prf_blocks is the PRF the TPU package takes from jax.random (threefry
-// lowered by XLA): out[f, c, l] = to_field(bits(fold_in(K_f, b_c), (l,)))
-// where K_f = fold_in(fold_in(key, lo_f), hi_f) and b_c is block index c
-// (the identity for tag generation, the challenged blocks for
-// verification). One thread per (fragment, block) runs the two id folds,
-// the block fold and one hash per limb: 20-round threefry2x32 with the
-// rotations (13,15,26,6)/(17,29,16,24), the key schedule k0, k1,
-// k0^k1^0x1BD11BDA, all in 32-bit registers. Bound: integer operations
-// (~80 per hash) against 4 bytes written per limb; output strides let
-// tag generation write the limb-major [F, limbs, blocks] layout that
-// podr2_tag reads.
+// The per-block PRF that tag generation adds is kernel prf_blocks, in
+// csrc/prf_blocks.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,43 +49,6 @@ constexpr uint32_t kP = 0x7FFFFFFFu;
 constexpr int kThreads = 256;
 constexpr int kWarpBlocks = 8;     // blocks a warp takes an iteration
 constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void mix4(uint32_t& x0, uint32_t& x1, int a, int b,
-                                     int c, int d) {
-  x0 += x1; x1 = rotl(x1, a); x1 ^= x0;
-  x0 += x1; x1 = rotl(x1, b); x1 ^= x0;
-  x0 += x1; x1 = rotl(x1, c); x1 ^= x0;
-  x0 += x1; x1 = rotl(x1, d); x1 ^= x0;
-}
-
-// threefry2x32 of counter (x0, x1) under key (k0, k1), in place.
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
-                                         uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0; x1 += k1;
-  mix4(x0, x1, 13, 15, 26, 6);  x0 += k1; x1 += k2 + 1u;
-  mix4(x0, x1, 17, 29, 16, 24); x0 += k2; x1 += k0 + 2u;
-  mix4(x0, x1, 13, 15, 26, 6);  x0 += k0; x1 += k1 + 3u;
-  mix4(x0, x1, 17, 29, 16, 24); x0 += k1; x1 += k2 + 4u;
-  mix4(x0, x1, 13, 15, 26, 6);  x0 += k2; x1 += k0 + 5u;
-}
-
-// fold_in(key, d) = threefry(key, (0, d)).
-__device__ __forceinline__ void fold_in(uint32_t& k0, uint32_t& k1,
-                                        uint32_t d) {
-  uint32_t x0 = 0u, x1 = d;
-  threefry(k0, k1, x0, x1);
-  k0 = x0; k1 = x1;
-}
-
-__device__ __forceinline__ uint32_t to_field(uint32_t x) {
-  const uint32_t r = (x & kP) + (x >> 31);
-  return r >= kP ? r - kP : r;
-}
 
 // a + b for a, b <= p: a value <= p congruent to the sum (p stands for 0)
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b) {
@@ -220,34 +174,6 @@ podr2_tag_kernel(const uint8_t* __restrict__ data,
   }
 }
 
-__global__ void prf_blocks_kernel(const long long* __restrict__ key,
-                                  const long long* __restrict__ ids,
-                                  const long long* __restrict__ blk,
-                                  int32_t* __restrict__ out, long long F,
-                                  long long C, int limbs, long long s_f,
-                                  long long s_c, long long s_l) {
-  const uint32_t key0 = static_cast<uint32_t>(key[0]);
-  const uint32_t key1 = static_cast<uint32_t>(key[1]);
-  const long long total = F * C;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < total; t += stride) {
-    const long long f = t / C;
-    const long long c = t - f * C;
-    uint32_t k0 = key0, k1 = key1;
-    fold_in(k0, k1, static_cast<uint32_t>(ids[2 * f]));
-    fold_in(k0, k1, static_cast<uint32_t>(ids[2 * f + 1]));
-    fold_in(k0, k1, static_cast<uint32_t>(blk ? blk[c] : c));
-    int32_t* dst = out + f * s_f + c * s_c;
-    for (int l = 0; l < limbs; ++l) {
-      uint32_t x0 = 0u, x1 = static_cast<uint32_t>(l);
-      threefry(k0, k1, x0, x1);
-      dst[l * s_l] = static_cast<int32_t>(to_field(x0 ^ x1));
-    }
-  }
-}
-
 // The card's SM count, read once per device.
 cudaError_t sm_count(int* out) {
   static int sms[kMaxDevices];
@@ -305,25 +231,4 @@ extern "C" int podr2_tag(const void* data, const void* w, const void* prf,
     case 4: return launch_tag<4>(data, w, prf, out, F, blocks, lanes, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// key [2] i64 raw key words, ids [F, 2] i64 (lo, hi) words, blk [C] i64
-// block indices or null for 0..C-1, out i32 at element strides
-// (s_f, s_c, s_l) for (fragment, block, limb). Returns cudaGetLastError().
-extern "C" int prf_blocks(const void* key, const void* ids, const void* blk,
-                          void* out, long long F, long long C, int limbs,
-                          long long s_f, long long s_c, long long s_l,
-                          void* stream) {
-  if (F <= 0 || C <= 0 || limbs <= 0) return 0;
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long grid = (F * C + kThreads - 1) / kThreads;
-  if (grid > 64LL * sms) grid = 64LL * sms;
-  prf_blocks_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(key), static_cast<const long long*>(ids),
-      static_cast<const long long*>(blk), static_cast<int32_t*>(out), F, C,
-      limbs, s_f, s_c, s_l);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -11,29 +11,37 @@ PRF the TPU package takes from ``jax.random``:
   limb-major layout ``podr2_tag`` reads or the protocol's block-major
   one.
 
-A CUDA tensor goes to the kernels in ``csrc/podr2_tag.cu``; a CPU tensor
-to the plain versions. Each wrapper counts its launches in
-``.launches``.
+A CUDA tensor goes to the kernels in ``csrc/podr2_tag.cu`` and
+``csrc/prf_blocks.cu``; a CPU tensor to the plain versions. Each
+wrapper counts its launches in ``.launches`` (``rs_kernel.count_launch``:
+a launch captured in a CUDA graph counts in ``.captured``).
+``prf_grid`` sizes every ``prf_blocks`` launch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _build
 from . import pfield as pf
 from . import prf as prf_mod
+from .rs_kernel import count_launch
 
 MAX_LANES = 512       # 2 * sectors: 16 bytes of a block for each lane of a warp
 MAX_KERNEL_LIMBS = 4  # the tag kernel is instantiated for 1..4 limbs
+PRF_THREADS = 256     # prf_blocks: threads a CTA (at most its launch bound)
+PRF_PER_THREAD = 8    # most blocks a thread takes in one tile
+PRF_CTAS_PER_SM = 8   # 2048 resident threads an SM
 
 _C = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = {
     "podr2_tag": [_C, _C, _C, _C, _LL, _LL, _I, _I, _I, _C],
-    "prf_blocks": [_C, _C, _C, _C, _LL, _LL, _I, _LL, _LL, _LL, _C],
+    "prf_blocks": [_C, _C, _C, _C, _LL, _LL, _I, _LL, _LL, _LL, _I, _LL, _LL,
+                   _C],
 }
 _fns: dict = {}
 
@@ -127,14 +135,33 @@ def podr2_tag(w: torch.Tensor, prf: torch.Tensor,
                                   prf.data_ptr(), out.data_ptr(), f, blocks,
                                   lanes, limbs, int(vec), _stream(dev))
     _build.check(rc, "podr2_tag")
-    podr2_tag.launches += 1
+    count_launch(podr2_tag)
     return out
 
 
 podr2_tag.launches = 0
+podr2_tag.captured = 0
 
 
 # -- kernel 3: PRF ---------------------------------------------------------
+
+
+def prf_grid(f: int, c: int, sms: int) -> tuple[int, int]:
+    """(blocks a tile, CTAs) of a ``prf_blocks`` launch over F fragments
+    x C blocks on a card with ``sms`` SMs. A tile holds one fragment's
+    blocks; each of its ``PRF_THREADS`` threads takes up to 8 of them when
+    the launch gives every SM a CTA of such threads, else 1, so that a
+    small launch spreads over the card. The CTAs stride over the
+    ``f * ceil(c / tile)`` tiles."""
+    per_thread = (PRF_PER_THREAD
+                  if f * c >= PRF_PER_THREAD * sms * PRF_THREADS else 1)
+    tile = PRF_THREADS * per_thread
+    return tile, min(f * -(-c // tile), sms * PRF_CTAS_PER_SM)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def prf_blocks(prf_key: torch.Tensor, ids: torch.Tensor,
@@ -172,13 +199,16 @@ def prf_blocks(prf_key: torch.Tensor, ids: torch.Tensor,
     blocks = blocks.contiguous() if blocks is not None else None
     blk_ptr = blocks.data_ptr() if blocks is not None else None
     prf_key = prf_key.contiguous()
+    tile, grid = prf_grid(f, n, _sm_count(out.get_device()))
     with torch.cuda.device(dev):
         rc = _kernel("prf_blocks")(prf_key.data_ptr(), ids.data_ptr(),
                                    blk_ptr, out.data_ptr(), f, n, limbs,
-                                   s_f, s_c, s_l, _stream(dev))
+                                   s_f, s_c, s_l, PRF_THREADS, tile, grid,
+                                   _stream(dev))
     _build.check(rc, "prf_blocks")
-    prf_blocks.launches += 1
+    count_launch(prf_blocks)
     return out
 
 
 prf_blocks.launches = 0
+prf_blocks.captured = 0

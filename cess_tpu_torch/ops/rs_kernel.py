@@ -8,9 +8,14 @@ matrix given as its split nibble tables ``[r, q, 2, 16]`` (``lo`` then
 gather formulation in torch. ``gf_apply.launches`` counts kernel
 launches (see ``count_launch``).
 
-The kernel keeps the tables in shared memory, up to the 227 KB a block
-may use (``SMEM_BYTES``); a larger matrix is applied by launches over
-slices of its output rows, so every RS(k, m) with k + m <= 256 runs.
+The kernel rebuilds the tables in shared memory as row-interleaved
+32-bit words (byte t of a word is the product for output row 4g + t of
+group g), so one lookup serves four output rows; the tests state that
+image and the kernel's arithmetic on it in torch. The image takes
+``table_smem_bytes(r, q)``, up to the 227 KB a block may use
+(``SMEM_BYTES``); a larger matrix is applied by launches over slices of
+``rows_per_launch(q)`` output rows, so every RS(k, m) with k + m <= 256
+runs.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from .. import _build
 from . import gf
 
 SMEM_BYTES = 232448   # 227 KB of shared memory a Hopper block may use
+GROUP_ROWS = 4        # output rows in one table word
+TABLE_BLOCK = 256     # bytes of one (pass, input row): [2 halves][2 groups][16] words
 
 _C = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -58,6 +65,30 @@ def gf_apply_plain(tab: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     for j in range(q):
         acc ^= tab[:, j, 0][:, d_lo[:, j]] ^ tab[:, j, 1][:, d_hi[:, j]]
     return acc.permute(1, 0, 2)
+
+
+def groups_per_pass(r: int) -> int:
+    """Row groups one kernel pass accumulates: 1 up to 4 rows, else 2."""
+    return 1 if r <= GROUP_ROWS else 2
+
+
+def passes(r: int) -> int:
+    """Passes over the input of one launch of r output rows (at least 1,
+    which also serves r = 0: the systematic copy)."""
+    rows = groups_per_pass(r) * GROUP_ROWS
+    return max(1, -(-r // rows))
+
+
+def table_smem_bytes(r: int, q: int) -> int:
+    """Shared memory of one launch: ceil(r / 8) * 8 * q * 32 bytes, and
+    q * 256 for r <= 4."""
+    return passes(r) * q * TABLE_BLOCK
+
+
+def rows_per_launch(q: int) -> int:
+    """Output rows a launch takes, a multiple of 8, so that its image
+    fits ``SMEM_BYTES`` (RS(64, 64): 112, one launch; RS(128, 128): 56)."""
+    return SMEM_BYTES // (max(q, 1) * TABLE_BLOCK) * 2 * GROUP_ROWS
 
 
 def count_launch(wrapper) -> None:
@@ -118,8 +149,8 @@ def gf_apply(tab: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"gf_apply runs on cuda or cpu tensors, not {dev}")
     if b == 0 or n == 0:
         return out
-    # output rows per launch: each launch's tables fit in shared memory
-    step = SMEM_BYTES // (max(q, 1) * 32)
+    # output rows per launch: each launch's table image fits in shared memory
+    step = rows_per_launch(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for i0 in range(0, max(r, 1), step):

@@ -3,18 +3,21 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases, one line each (every number carries the card's name and power
 limit):
 
 1. build: nvcc builds ``cess_tpu_torch/csrc/*.cu`` for sm_90a;
 2. kernels: each kernel against its plain PyTorch version on the card,
-   byte-exact, at the main paths' shapes (``gf_apply`` also at RS(64,64)
-   and RS(128,128); ``gf_xor`` on the RS(4,8) encode and decode, the
-   RS(2,1) repair, the [1, 2] symbol fold, a ragged n, an unaligned
-   view, and the RS(16,16) encode, the largest schedule that fits a
-   block);
+   byte-exact, at the main paths' shapes (``gf_apply`` also with 3 and 5
+   output rows, on the RS(4,8) decode and RS(2,1) repair matrices, a
+   ragged n, an unaligned view, RS(64,64) and RS(128,128); ``gf_xor`` on
+   the RS(4,8) encode and decode, the RS(2,1) repair, the [1, 2] symbol
+   fold, a ragged n, an unaligned view, and the RS(16,16) encode, the
+   largest schedule that fits a block; ``prf_blocks`` on one fragment of
+   16384 blocks and on the main path's 96 fragments x 16384 blocks, both
+   layouts, and on 96 fragments x 753 challenged blocks);
 3. main path: ``StoragePipeline`` RS(2,1) on 32 segments of 16 MiB (a
    512 MiB upload, 96 fragments of 8 MiB), one audit round (challenge,
    aggregation coefficients, aggregated proof, verification), a
@@ -34,11 +37,29 @@ limit):
 6. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-7. kernel times (median of 20 launches, CUDA events) beside the plain
-   versions' times and each kernel's bound (``gf_xor``'s operations: per
-   32-byte group the schedule's XORs and the bit transposes of every
-   input and output row, ``rs_xor.kernel_ops``), and ``gf_xor`` beside
-   ``gf_apply`` on the same RS(4,8) encode (the "auto" verdict).
+7. kernel times beside the plain versions' times and each kernel's
+   bound: bytes over 3.35 TB/s or integer operations over
+   SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
+   operations: per 32-byte group the schedule's XORs and the bit
+   transposes of every input and output row, ``rs_xor.kernel_ops``;
+   ``gf_apply``'s: per byte position and group of 4 output rows, 2
+   lookups and 2 XORs an input row and 2 byte permutes of the
+   transpose, ``gf_apply_ops``), with ``gf_apply`` at the RS(2,1) and
+   the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
+   RS(4,8) encode in turns (the "auto" verdict); and what the card's
+   memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
+8. with ``--parent DIR`` (another checkout of the repository, e.g. the
+   parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
+   built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
+   ``prf_blocks`` are timed through the same wrappers on the same inputs
+   with that checkout's kernel and with this one's, in turns parent,
+   change, change, parent (``graph_ms``), the outputs compared byte for
+   byte.
+
+A kernel's ``ms`` is one wrapper call between two events, the median of
+20 (``event_ms``): the host's time to launch is included. Its
+``device_ms`` leaves that out: ``graph_ms`` captures 20 calls of the
+wrapper in a CUDA graph and replays it.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -47,6 +68,7 @@ result. It imports neither jax nor ``cess_tpu``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -55,14 +77,19 @@ import time
 
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-# 32-bit integer peak = SMs x INT32 lanes per SM x boost clock: a Hopper
-# SM has 4 partitions of 16 INT32 units (NVIDIA H100 architecture white
-# paper); 1.98 GHz is the H100 SXM boost clock (its 67 TFLOP/s FP32 rate
-# is 132 SMs x 128 FP32 lanes x 2 x 1.98 GHz)
-INT32_LANES_PER_SM = 64
+# 32-bit integer peak = SMs x lanes dispatched per SM and clock x boost
+# clock: a Hopper SM's 4 schedulers dispatch one warp instruction (32
+# lanes) each a clock, and integer adds and multiply-adds also run as
+# IMAD on the 128 FP32 lanes beside the 64 INT32 ones, so 128 lanes a
+# clock is the most any mix reaches (64 INT32 lanes alone is no bound:
+# prf_blocks has run faster than its operations over that rate); 1.98
+# GHz is the H100 SXM boost clock (its 67 TFLOP/s FP32 rate is 132 SMs x
+# 128 FP32 lanes x 2 x 1.98 GHz; NVIDIA H100 architecture white paper)
+INT_LANES_PER_SM = 128
 BOOST_HZ = 1.98e9
 THREEFRY_OPS = 79                # 20 x (add, rotate, xor) + 5 key injections x 3 + 4
 TIMED_LAUNCHES = 20
+GRAPH_REPLAYS = 5
 
 
 def fail(msg: str) -> None:
@@ -100,8 +127,17 @@ def rand_bytes(shape, seed: int, dev):
                          generator=g)
 
 
+def gf_apply_ops(b: int, n: int, r: int, q: int) -> int:
+    """Integer operations of ``gf_apply`` on [b, q, n] -> [b, r, n]: per
+    byte position and group of 4 output rows, 2 table lookups and 2 XORs
+    for each input row, and 2 byte permutes (a 4 x 4 byte transpose is 8
+    for 4 positions)."""
+    return b * n * -(-r // 4) * (4 * q + 2)
+
+
 def event_ms(fn, runs: int) -> float:
-    """Median device time of ``fn`` over ``runs`` calls, after warm-up."""
+    """Median time of one ``fn`` call between two events over ``runs``
+    calls, after warm-up: the host's time to launch is included."""
     import torch
 
     fn()
@@ -118,9 +154,104 @@ def event_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
+def graph_ms(fn, runs: int = TIMED_LAUNCHES, reps: int = GRAPH_REPLAYS
+             ) -> float:
+    """Device time of one ``fn`` call: ``runs`` calls captured in one CUDA
+    graph, the graph replayed ``reps`` times between events; the median
+    replay over ``runs``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def parent_turns(parent: str, cases, tag: str) -> None:
+    """Time each case's wrapper with the kernels built from ``parent``'s
+    sources and with this tree's, in turns parent, change, change,
+    parent (``graph_ms``), and check that both give the same bytes.
+
+    ``cases``: (label, module, attribute, name, run) where
+    ``module.attribute`` holds the loaded C function ``name`` that the
+    wrapper calls (or a dict of them by name; its C interface is the same
+    in both trees) and ``run()`` calls the wrapper."""
+    from pathlib import Path
+
+    import torch
+    from cess_tpu_torch import _build
+
+    csrc = Path(parent) / "cess_tpu_torch" / "csrc"
+    lib = ctypes.CDLL(str(_build.build(csrc)))
+    # a tree without csrc/prf_blocks.cu keeps prf_blocks in podr2_tag.cu,
+    # where it sizes its own launch: no (threads, tile, grid) arguments
+    own_launch = not (csrc / "prf_blocks.cu").exists()
+
+    def swapped(module, attr, name):
+        mine = getattr(module, attr)
+        if isinstance(mine, dict):
+            mine = mine[name]
+        theirs = getattr(lib, name)
+        theirs.restype = mine.restype
+        if name == "prf_blocks" and own_launch:
+            theirs.argtypes = mine.argtypes[:10] + mine.argtypes[-1:]
+            return mine, lambda *a: theirs(*a[:10], a[-1])
+        theirs.argtypes = mine.argtypes
+        return mine, theirs
+
+    def use(module, attr, name, fn):
+        if isinstance(getattr(module, attr), dict):
+            getattr(module, attr)[name] = fn
+        else:
+            setattr(module, attr, fn)
+
+    for label, module, attr, name, run in cases:
+        mine, theirs = swapped(module, attr, name)
+        use(module, attr, name, theirs)
+        want = run().clone()
+        times = {}
+        try:
+            for turn, fn in enumerate((theirs, mine, mine, theirs)):
+                use(module, attr, name, fn)
+                times[turn] = graph_ms(run)
+        finally:
+            use(module, attr, name, mine)
+        got = run()
+        check(torch.equal(got, want),
+              f"{label}: this tree's kernel and the parent's differ")
+        del want, got
+        torch.cuda.empty_cache()
+        print(f"turns {label}: parent {times[0]:.4f} ms, change "
+              f"{times[1]:.4f} / {times[2]:.4f} ms, parent {times[3]:.4f} "
+              f"ms (graph_ms, byte-equal) {tag}")
+
+
+def main(argv: list[str]) -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="another checkout whose gf_apply and "
+                    "prf_blocks kernels are timed beside this tree's")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device present", file=sys.stderr)
@@ -162,11 +293,16 @@ def main() -> int:
           f"sources {tag}")
 
     # 2. kernels against their plain versions -----------------------------
-    def gf_case(mat, b, n, seed, encode):
+    def gf_case(mat, b, n, seed, encode, unaligned=False):
         tab = rs_kernel.tables(mat, dev)
         r, q = mat.shape
         data = rand_bytes((b, q, n), seed, dev)
-        if encode:
+        if unaligned:
+            view = torch.empty((b, q, n + 1), dtype=torch.uint8,
+                               device=dev)[:, :, 1:]
+            view.copy_(data)
+            got = rs_kernel.gf_apply(tab, view)
+        elif encode:
             out = torch.empty((b, q + r, n), dtype=torch.uint8, device=dev)
             rs_kernel.gf_apply(tab, data, out=out[:, q:], sys_out=out[:, :q])
             torch.cuda.synchronize()
@@ -177,13 +313,20 @@ def main() -> int:
         want = rs_kernel.gf_apply_plain(tab, data)
         e = max_err(got, want)
         errs["gf_apply"] = max(errs["gf_apply"], e)
-        check(e == 0, f"gf_apply {r}x{q} differs from its plain version")
-        return f"{r}x{q}"
+        check(e == 0, f"gf_apply {r}x{q} n={n} differs from its plain version")
+        del data, got, want
+        return f"{r}x{q} n={n}{' unaligned' if unaligned else ''}"
 
     done = [
         gf_case(gf.cauchy_parity_matrix(2, 1), 32, 8 * MIB, 1, True),
         gf_case(gf.cauchy_parity_matrix(4, 8), 8, 4 * MIB, 2, True),
+        gf_case(gf.cauchy_parity_matrix(4, 3), 8, 4 * MIB, 30, True),
+        gf_case(gf.cauchy_parity_matrix(4, 5), 8, 4 * MIB, 31, True),
         gf_case(gf.decode_matrix(4, 8, (4, 5, 6, 7)), 8, 4 * MIB, 3, False),
+        gf_case(gf.repair_matrix(2, 1, (1, 2), (0,)), 8, 8 * MIB, 32, False),
+        gf_case(gf.cauchy_parity_matrix(4, 8), 3, 4 * MIB + 3, 33, True),
+        gf_case(gf.cauchy_parity_matrix(4, 5), 3, 4 * MIB + 3, 34, False,
+                unaligned=True),
         # 128 KB of tables (one launch) and 512 KB (split over output rows)
         gf_case(gf.cauchy_parity_matrix(64, 64), 2, MIB, 10, True),
         gf_case(gf.cauchy_parity_matrix(128, 128), 2, 64 * 1024, 11, True),
@@ -245,6 +388,29 @@ def main() -> int:
     errs["prf_blocks"] = max(errs["prf_blocks"], max_err(
         podr2_kernel.prf_blocks(key0.prf_key, ids, challenged, 753, 2),
         prf.prf_plain(key0.prf_key, ids, challenged, 2)))
+    # one fragment of a whole fragment's blocks, both layouts (prf_elems),
+    # and the audit's 96 fragments x 753 challenged blocks
+    one = ids[:1]
+    every = torch.arange(blocks, device=dev)
+    for limb_major in (False, True):
+        want = prf.prf_plain(key0.prf_key, one, every, 2)
+        errs["prf_blocks"] = max(errs["prf_blocks"], max_err(
+            podr2_kernel.prf_blocks(key0.prf_key, one, None, blocks, 2,
+                                    limb_major=limb_major),
+            want.transpose(1, 2) if limb_major else want))
+    ids96 = torch.randint(0, 1 << 32, (96, 2), dtype=torch.int64,
+                          device=dev, generator=gen)
+    errs["prf_blocks"] = max(errs["prf_blocks"], max_err(
+        podr2_kernel.prf_blocks(key0.prf_key, ids96, challenged, 753, 2),
+        prf.prf_plain(key0.prf_key, ids96, challenged, 2)))
+    # the main path's tag generation, 96 x 16384 (8 blocks a thread)
+    want = prf.prf_plain(key0.prf_key, ids96, every, 2)
+    for limb_major in (False, True):
+        errs["prf_blocks"] = max(errs["prf_blocks"], max_err(
+            podr2_kernel.prf_blocks(key0.prf_key, ids96, None, blocks, 2,
+                                    limb_major=limb_major),
+            want.transpose(1, 2) if limb_major else want))
+    del want
     check(errs["prf_blocks"] == 0, "prf_blocks differs from its plain version")
     data = rand_bytes((sub_f, blocks, podr2.BLOCK_BYTES), 5, dev)
     errs["podr2_tag"] = max_err(
@@ -257,7 +423,8 @@ def main() -> int:
     print(f"phase kernels: gf_apply {', '.join(done)} byte-exact; "
           f"gf_xor {'; '.join(xdone)} byte-exact; "
           f"prf_blocks and podr2_tag byte-exact on {sub_f} fragments x "
-          f"{blocks} blocks {tag}")
+          f"{blocks} blocks; prf_blocks on 1 and 96 x {blocks} (both "
+          f"layouts), {sub_f} and 96 fragments x 753 challenged blocks {tag}")
 
     # 3. main path: a 512 MiB RS(2,1) upload, audited and repaired ---------
     cfg = PipelineConfig()
@@ -461,6 +628,7 @@ def main() -> int:
     datax = rand_bytes((bx, 4, nx), 13, dev)
     encx = torch.empty((bx, 12, nx), dtype=torch.uint8, device=dev)
     schedx, opsx = pipex.parity_sched, pipex.parity_ops
+    tab48 = pipe8.parity_tables
     runs = {
         "gf_xor": (
             lambda: rs_xor.gf_xor(schedx, opsx, datax, out=encx[:, 4:],
@@ -470,6 +638,10 @@ def main() -> int:
             lambda: rs_kernel.gf_apply(tab, data, out=enc[:, cfg.k:],
                                        sys_out=enc[:, :cfg.k]),
             lambda: rs_kernel.gf_apply_plain(tab, data)),
+        "gf_apply RS(4,8)": (
+            lambda: rs_kernel.gf_apply(tab48, datax, out=encx[:, 4:],
+                                       sys_out=encx[:, :4]),
+            lambda: rs_kernel.gf_apply_plain(tab48, datax)),
         "prf_blocks": (
             lambda: podr2_kernel.prf_blocks(pipe.prf_key, id_pairs, None, blocks,
                                             2, limb_major=True),
@@ -482,9 +654,11 @@ def main() -> int:
     seg_bytes = b * cfg.segment_size
     tag_out = nfrag * blocks * 2 * 4
     bounds = {
-        # bytes: data in, systematic + parity out; ops: 2 lookups + 2 xors
-        # per (output row, input row, byte)
-        "gf_apply": (seg_bytes + b * rows * n, b * n * cfg.m * cfg.k * 4),
+        # bytes: data in, systematic + parity out; ops: gf_apply_ops
+        "gf_apply": (seg_bytes + b * rows * n,
+                     gf_apply_ops(b, n, cfg.m, cfg.k)),
+        "gf_apply RS(4,8)": (bx * 4 * nx + bx * 12 * nx,
+                             gf_apply_ops(bx, nx, 8, 4)),
         # bytes: ids in, field elements out; ops: 2 id folds per fragment,
         # one block fold and one hash per limb per block
         "prf_blocks": (nfrag * 16 + tag_out,
@@ -504,55 +678,93 @@ def main() -> int:
                      "cess_tpu/ops/rs_pallas.py:46"),
         "podr2_tag": ("cess_tpu_torch/csrc/podr2_tag.cu",
                       "cess_tpu/ops/podr2_pallas.py:67"),
-        "prf_blocks": ("cess_tpu_torch/csrc/podr2_tag.cu",
+        "prf_blocks": ("cess_tpu_torch/csrc/prf_blocks.cu",
                        "cess_tpu/ops/podr2.py:170"),
         "gf_xor": ("cess_tpu_torch/csrc/gf_xor.cu",
                    "cess_tpu/ops/rs_xor.py:96"),
     }
-    # the path whose run gives each kernel's launches
-    path_launches = {**launches, "gf_xor": launchesx["gf_xor"]}
+    # the path whose run gives each kernel's launches: the RS(2,1) main
+    # path, the RS(4,8) phase for gf_apply there, the xor path for gf_xor
+    path_launches = {**launches, "gf_xor": launchesx["gf_xor"],
+                     "gf_apply RS(4,8)": launches8["gf_apply"]}
+    rs48 = f"RS(4,8) encode [{bx}, 4, {nx}] -> [{bx}, 12, {nx}]"
+    shapes = {
+        "gf_apply": f"RS(2,1) encode [{b}, 2, {n}] -> [{b}, 3, {n}]",
+        "gf_apply RS(4,8)": rs48,
+        "podr2_tag": f"[{nfrag}, {blocks}, 512] x 2 limbs",
+        "prf_blocks": f"{nfrag} x {blocks} blocks x 2 limbs, limb-major",
+        "gf_xor": rs48,
+    }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    int_ops_per_s = sms * INT32_LANES_PER_SM * BOOST_HZ
+    int_ops_per_s = sms * INT_LANES_PER_SM * BOOST_HZ
     print(f"bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM; "
           f"{int_ops_per_s / 1e12:.3f} T int32 ops/s ({sms} SMs x "
-          f"{INT32_LANES_PER_SM} lanes x {BOOST_HZ / 1e9:.2f} GHz) {tag}")
+          f"{INT_LANES_PER_SM} lanes x {BOOST_HZ / 1e9:.2f} GHz) {tag}")
     record = []
-    for name in ("gf_apply", "podr2_tag", "prf_blocks", "gf_xor"):
-        kern, plain = runs[name]
+    for label in ("gf_apply", "gf_apply RS(4,8)", "podr2_tag", "prf_blocks",
+                  "gf_xor"):
+        name = label.split()[0]
+        kern, plain = runs[label]
         ms = event_ms(kern, TIMED_LAUNCHES)
+        device_ms = graph_ms(kern)
         plain_ms = event_ms(plain, 3)
         torch.cuda.empty_cache()
-        nbytes, ops = bounds[name]
+        nbytes, ops = bounds[label]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / int_ops_per_s * 1e3
         bound_ms = max(t_bytes, t_ops)
         record.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": path_launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "name": name, "shape": shapes[label], "route": "cuda",
+            "source": sources[name][0], "replaces": sources[name][1],
+            "launches": path_launches[label], "max_abs_err": errs[name],
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None})
-        print(f"time {name}: {ms:.4f} ms (median of {TIMED_LAUNCHES}), plain "
-              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-              f"{record[-1]['bound_by']}, roofline share {bound_ms / ms:.1%} {tag}")
+        print(f"time {label}: {ms:.4f} ms a call (device {device_ms:.4f}), "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+              f"{record[-1]['bound_by']}, roofline share {bound_ms / ms:.1%} "
+              f"(device {bound_ms / device_ms:.1%}) {tag}")
     # the "auto" verdict on this card: both lowerings of the RS(4,8) encode
     # on the same data, in turns (dense, xor, xor, dense)
-    tabx = rs_kernel.tables(gf.cauchy_parity_matrix(4, 8), dev)
-    dense_run = lambda: rs_kernel.gf_apply(tabx, datax, out=encx[:, 4:],
-                                           sys_out=encx[:, :4])
-    turns = [event_ms(fn, TIMED_LAUNCHES) for fn in
+    dense_run = runs["gf_apply RS(4,8)"][0]
+    turns = [graph_ms(fn) for fn in
              (dense_run, runs["gf_xor"][0], runs["gf_xor"][0], dense_run)]
     dense_ms = statistics.median([turns[0], turns[3]])
     xor_ms = statistics.median([turns[1], turns[2]])
     dense_bound = max((bx * 4 * nx + bx * 12 * nx) / HBM_BYTES_PER_S,
-                      bx * nx * 8 * 4 * 4 / int_ops_per_s) * 1e3
+                      gf_apply_ops(bx, nx, 8, 4) / int_ops_per_s) * 1e3
     print(f"auto verdict at RS(4,8) [{bx}, 4, {nx}] encode: gf_xor "
           f"{turns[1]:.4f}/{turns[2]:.4f} ms, gf_apply {turns[0]:.4f}/"
           f"{turns[3]:.4f} ms (turns dense, xor, xor, dense; bounds "
           f"{record[-1]['bound_ms']:.4f} and {dense_bound:.4f} ms); the TPU "
           f"cost model's 'xor' {'holds' if xor_ms < dense_ms else 'does not hold'}"
           f" on this card {tag}")
+    # what the card's memory sustains, for the byte-bound kernels beside
+    # it: a device copy of datax's 512 MiB and a fill of encx's 1.5 GiB
+    # (library calls, timed here only)
+    flat_in, flat_out = datax.view(-1), encx.view(-1)
+    copy_ms = graph_ms(lambda: flat_out[:flat_in.numel()].copy_(flat_in))
+    fill_ms = graph_ms(lambda: flat_out.fill_(0))
+    print(f"hbm: copy {flat_in.numel() / MIB:.0f} MiB {copy_ms:.4f} ms = "
+          f"{2 * flat_in.numel() / copy_ms / 1e9:.3f} TB/s read + written; "
+          f"fill {flat_out.numel() / MIB:.0f} MiB {fill_ms:.4f} ms = "
+          f"{flat_out.numel() / fill_ms / 1e9:.3f} TB/s (device times) {tag}")
+    if args.parent:
+        parent_turns(args.parent, [
+            ("gf_apply RS(2,1) encode", rs_kernel, "_fn", "gf_apply",
+             runs["gf_apply"][0]),
+            ("gf_apply RS(4,8) encode", rs_kernel, "_fn", "gf_apply",
+             runs["gf_apply RS(4,8)"][0]),
+            ("prf_blocks 96 x 16384 x 2 limb-major", podr2_kernel, "_fns",
+             "prf_blocks", runs["prf_blocks"][0]),
+            ("prf_blocks 96 x 753 x 2 block-major", podr2_kernel, "_fns",
+             "prf_blocks", lambda: podr2_kernel.prf_blocks(
+                 pipe.prf_key, id_pairs, idx, idx.shape[0], 2)),
+            ("prf_blocks 1 x 16384 x 2 block-major", podr2_kernel, "_fns",
+             "prf_blocks", lambda: podr2_kernel.prf_blocks(
+                 pipe.prf_key, id_pairs[:1], None, blocks, 2)),
+        ], tag)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -561,4 +773,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions.
 
 Every test here needs a CUDA device and skips without one. The file
-imports neither jax nor cess_tpu, so it also runs where only the port
-is installed:
+imports neither jax nor cess_tpu (nor does ``test_torch_layouts``, whose
+torch statement of ``gf_apply`` it holds the kernel to), so it also runs
+where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels.py
 """
@@ -15,6 +16,7 @@ from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
 from cess_tpu_torch.ops import (gf, podr2, podr2_kernel, prf, regen, rs,
                                 rs_kernel, rs_xor, xor_sched)
 from cess_tpu_torch.ops.rs import TorchCodec
+from test_torch_layouts import interleaved_apply
 
 pytestmark = pytest.mark.gpu
 
@@ -70,10 +72,86 @@ def test_gf_apply_wide_geometries(cuda_device, k, m):
     out = torch.empty((2, k + m, 1000), dtype=torch.uint8, device=cuda_device)
     before = rs_kernel.gf_apply.launches
     rs_kernel.gf_apply(tab, data, out=out[:, k:], sys_out=out[:, :k])
-    step = rs_kernel.SMEM_BYTES // (k * 32)
+    # launches over output rows: 8-row steps whose interleaved image
+    # (ceil(rows / 8) * 8 * k * 32 bytes) fits 227 KB
+    step = rs_kernel.SMEM_BYTES // (k * 256) * 8
+    assert step == rs_kernel.rows_per_launch(k)
     assert rs_kernel.gf_apply.launches == before + -(-m // step)
+    assert -(-m // step) == {64: 1, 128: 3}[k]
     assert torch.equal(out[:, :k], data)
     assert torch.equal(out[:, k:], rs_kernel.gf_apply_plain(tab, data))
+
+
+@pytest.mark.parametrize("r", [1, 3, 5])
+@pytest.mark.parametrize("q", [2, 4, 10])
+@pytest.mark.parametrize("n", [4096, 4099])
+def test_gf_apply_partial_row_groups(cuda_device, r, q, n):
+    """Row counts that leave a group of 4 partly empty: the padded rows
+    are never stored, in the vector path, the byte path of a ragged tail
+    and an unaligned view; the result equals the CPU statement of the
+    kernel's arithmetic."""
+    mat = gf.cauchy_parity_matrix(q, r)
+    tab = rs_kernel.tables(mat, cuda_device)
+    data = rand((3, q, n), seed=16 * r + q).to(cuda_device)
+    out = torch.full((3, q + r + 1, n), 0xA5, dtype=torch.uint8,
+                     device=cuda_device)
+    rs_kernel.gf_apply(tab, data, out=out[:, q:q + r], sys_out=out[:, :q])
+    want = rs_kernel.gf_apply_plain(tab, data)
+    assert torch.equal(out[:, :q], data)
+    assert torch.equal(out[:, q:q + r], want)
+    assert bool((out[:, q + r] == 0xA5).all())
+    assert torch.equal(want.cpu(), interleaved_apply(tab.cpu(), data.cpu()))
+    view = torch.empty((3, q, n + 1), dtype=torch.uint8,
+                       device=cuda_device)[:, :, 1:]
+    view.copy_(data)
+    assert torch.equal(rs_kernel.gf_apply(tab, view), want)
+
+
+@pytest.mark.parametrize("limb_major", [False, True])
+@pytest.mark.parametrize("c", [16384, 2049, 753, 1])
+def test_prf_blocks_one_fragment(cuda_device, limb_major, c):
+    """F = 1, as ``prf_elems`` and ``prf_elems_at`` call it: one tile of
+    2048 blocks or a ragged last tile; ids and block indices above 2^32
+    hash their low words."""
+    key = podr2.Podr2Key.generate(3, device=cuda_device)
+    ids = torch.tensor([[(1 << 40) + 7, (3 << 33) + 9]], dtype=torch.int64,
+                       device=cuda_device)
+    idx = torch.arange(c, device=cuda_device)
+    before = podr2_kernel.prf_blocks.launches
+    got = podr2_kernel.prf_blocks(key.prf_key, ids, None, c, 2,
+                                  limb_major=limb_major)
+    want = prf.prf_plain(key.prf_key, ids, idx, 2).to(torch.int32)
+    assert podr2_kernel.prf_blocks.launches == before + 1
+    assert torch.equal(got, want.transpose(1, 2) if limb_major else want)
+    at = torch.tensor([0, c - 1, (1 << 32) + 5, 5], dtype=torch.int64,
+                      device=cuda_device)
+    assert torch.equal(
+        podr2_kernel.prf_blocks(key.prf_key, ids, at, 4, 2,
+                                limb_major=limb_major),
+        prf.prf_plain(key.prf_key, ids, at, 2).to(torch.int32).transpose(1, 2)
+        if limb_major else prf.prf_plain(key.prf_key, ids, at, 2).to(torch.int32))
+
+
+@pytest.mark.parametrize("limbs", [1, 2, 3, 4])
+@pytest.mark.parametrize("c", [16384, 16001])
+def test_prf_blocks_eight_blocks_a_thread(cuda_device, limbs, c):
+    """F x C above 8 x SMs x 256, where each thread takes 8 blocks of a
+    tile (the main path's tag generation, 96 x 16384, takes this body
+    too): both layouts, whole tiles and a ragged last tile."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    f = -(-8 * sms * podr2_kernel.PRF_THREADS // c)
+    tile, _ = podr2_kernel.prf_grid(f, c, sms)
+    assert tile == 8 * podr2_kernel.PRF_THREADS
+    key = podr2.Podr2Key.generate(7, device=cuda_device)
+    ids = torch.randint(0, 1 << 32, (f, 2), dtype=torch.int64,
+                        generator=torch.Generator().manual_seed(c + limbs))
+    ids = ids.to(cuda_device)
+    want = prf.prf_plain(key.prf_key, ids, torch.arange(c, device=cuda_device),
+                         limbs).to(torch.int32)
+    for limb_major in (False, True):
+        got = podr2_kernel.prf_blocks(key.prf_key, ids, None, c, limbs,
+                                      limb_major=limb_major)
+        assert torch.equal(got, want.transpose(1, 2) if limb_major else want)
 
 
 @pytest.mark.parametrize("name", sorted(XOR_MATRICES))
