@@ -8,7 +8,13 @@ hand-written CUDA kernels (``csrc/``), built with nvcc at first use.
 This package imports neither jax nor ``cess_tpu``.
 
 Layout: ``constants``; ``ops`` (``gf``, ``pfield``, ``prf``,
-``rs_kernel`` + ``rs``, ``podr2_kernel`` + ``podr2``,
-``audit_backend``); ``models.pipeline``; ``convert`` (keys from the TPU
-package's arrays); ``kat`` (the known-answer digest); ``_build``.
+``rs_kernel`` + ``rs``, ``rs_xor`` + ``xor_sched``, ``rs_ref``,
+``regen``, ``podr2_kernel`` + ``podr2``, ``audit_backend``);
+``models.pipeline`` (``StoragePipeline``, with an optional engine and
+its fused encode + tag program); ``serve`` (the submission engine
+``SubmissionEngine`` / ``make_engine`` and the pinned-memory streaming
+ingest ``StreamingIngest``, with ``policy``, ``buckets`` and ``stats``);
+``obs.prom`` (the engine's latency histograms); ``convert`` (keys from
+the TPU package's arrays); ``kat`` (the known-answer digest);
+``_build``.
 """

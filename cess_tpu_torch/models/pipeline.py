@@ -9,6 +9,13 @@ apply of ``PipelineConfig.strategy`` (systematic copy and parity in one
 pass: ``gf_apply`` under the dense strategies, ``gf_xor`` under "xor",
 either under "auto" by the cost model, see ``ops/rs.py``), ``prf_blocks``
 (the per-block PRF) and ``podr2_tag``.
+
+With a submission engine (``cess_tpu_torch/serve``, ``engine=``) the
+steps submit through its batched queues instead, so concurrent callers
+coalesce into shared device batches; results are the same bytes.
+``fused_program`` is the direct encode + tag as one callable with no
+host round trip, the program the streaming ingest
+(``serve/stream.py``) runs per batch.
 """
 from __future__ import annotations
 
@@ -54,10 +61,16 @@ class StoragePipeline(nn.Module):
     ``parity_ops``. The tag kernel's weights are derived from alpha
     whenever the key is read, so they cannot drift from it. Without
     ``podr2_key`` the key is ``Podr2Key.generate(0)``, the TPU package's
-    default."""
+    default.
+
+    ``engine``: an optional ``serve.SubmissionEngine``; ``encode_step``
+    and ``tag_step`` (with id pairs) then submit through it. An engine
+    whose codec geometry or audit key differs from the pipeline's is
+    refused: it would compute other bytes than the direct path."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
-                 podr2_key: podr2.Podr2Key | None = None, device=None):
+                 podr2_key: podr2.Podr2Key | None = None, device=None,
+                 engine=None):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
@@ -80,6 +93,16 @@ class StoragePipeline(nn.Module):
                 self.parity_sched, dev), persistent=False)
         self.register_buffer("alpha", key.alpha)
         self.register_buffer("prf_key", key.prf_key)
+        self.engine = engine
+        if engine is not None and engine.codec is not None \
+                and (engine.codec.k, engine.codec.m) != (config.k, config.m):
+            raise ValueError(
+                f"engine codec RS({engine.codec.k},{engine.codec.m}) != "
+                f"pipeline RS({config.k},{config.m})")
+        if engine is not None and engine.audit is not None \
+                and not podr2.keys_equal(engine.audit.key, key):
+            raise ValueError("engine AuditBackend key differs from "
+                             "the pipeline's PoDR2 key")
 
     @property
     def podr2_key(self) -> podr2.Podr2Key:
@@ -89,15 +112,28 @@ class StoragePipeline(nn.Module):
     def device(self) -> torch.device:
         return self.alpha.device
 
-    def encode_step(self, segments: torch.Tensor) -> torch.Tensor:
-        """[B, segment_size] uint8 -> [B, k+m, fragment_size] uint8."""
+    def _data(self, segments) -> torch.Tensor:
+        """Segments [B, segment_size] on the pipeline's device, viewed as
+        [B, k, fragment_size] data rows."""
         cfg = self.config
         segments = torch.as_tensor(segments).to(self.device)
         if segments.dim() != 2 or segments.shape[1] != cfg.segment_size:
             raise ValueError(f"segments must be [B, {cfg.segment_size}], got "
                              f"{tuple(segments.shape)}")
-        b = segments.shape[0]
-        data = segments.contiguous().view(b, cfg.k, cfg.fragment_size)
+        return segments.contiguous().view(segments.shape[0], cfg.k,
+                                          cfg.fragment_size)
+
+    def encode_step(self, segments: torch.Tensor) -> torch.Tensor:
+        """[B, segment_size] uint8 -> [B, k+m, fragment_size] uint8."""
+        data = self._data(segments)
+        if self.engine is not None and self.engine.codec is not None:
+            # a device tensor in, a device tensor back: no host trip
+            return torch.as_tensor(self.engine.encode(data)).to(self.device)
+        return self._encode(data)
+
+    def _encode(self, data: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        b = data.shape[0]
         out = torch.empty((b, cfg.k + cfg.m, cfg.fragment_size),
                           dtype=torch.uint8, device=self.device)
         if uses_xor(self.strategy, self.parity_sched, data.shape):
@@ -114,8 +150,23 @@ class StoragePipeline(nn.Module):
 
         fragment_ids: [B, k+m] scalar ids or [B, k+m, 2] hash word pairs
         (``podr2.fragment_id_from_hash``). The default ``arange(B*(k+m))``
-        is for benches and demos only: ids must be unique per key."""
+        is for benches and demos only: ids must be unique per key. With
+        an engine, id pairs are tagged through it; scalar ids (and the
+        default) stay on the direct path, as in the TPU package."""
         fragments = torch.as_tensor(fragments).to(self.device)
+        b, rows, n = fragments.shape
+        if fragment_ids is not None \
+                and not isinstance(fragment_ids, (torch.Tensor, np.ndarray)):
+            fragment_ids = np.asarray(fragment_ids)
+        if fragment_ids is not None and fragment_ids.ndim == 3 \
+                and self.engine is not None and self.engine.audit is not None:
+            tags = torch.as_tensor(self.engine.tag_fragments(
+                fragment_ids.reshape(b * rows, 2),
+                fragments.reshape(b * rows, n))).to(self.device)
+            return tags.reshape(b, rows, *tags.shape[1:])
+        return self._tag(fragments, fragment_ids)
+
+    def _tag(self, fragments: torch.Tensor, fragment_ids) -> torch.Tensor:
         b, rows, n = fragments.shape
         if fragment_ids is None:
             fragment_ids = torch.arange(b * rows, dtype=torch.int64,
@@ -129,10 +180,26 @@ class StoragePipeline(nn.Module):
                                    fragments.reshape(b * rows, n))
         return tags.reshape(b, rows, *tags.shape[1:])
 
+    def fused_program(self):
+        """The direct encode + tag as one callable, ``(segments [B,
+        segment_size] u8, fragment_ids [B*(k+m)] | [B, k+m] | [B, k+m,
+        2]) -> {"fragments": [B, k+m, frag], "tags": [B, k+m, blocks,
+        limbs]}``, run eagerly on the segments' device with no host round
+        trip (never through an engine). The streaming ingest calls it
+        once per batch."""
+        return self._fused
+
+    def _fused(self, segments, fragment_ids) -> dict[str, torch.Tensor]:
+        shards = self._encode(self._data(segments))
+        return {"fragments": shards, "tags": self._tag(shards, fragment_ids)}
+
     def forward(self, segments: torch.Tensor,
                 fragment_ids=None) -> dict[str, torch.Tensor]:
         """Encode and tag: {"fragments": [B, k+m, frag] uint8, "tags":
-        [B, k+m, blocks, limbs] int32}."""
-        shards = self.encode_step(segments)
-        return {"fragments": shards,
-                "tags": self.tag_step(shards, fragment_ids)}
+        [B, k+m, blocks, limbs] int32}: through the engine when one is
+        set, else the fused program."""
+        if self.engine is not None:
+            shards = self.encode_step(segments)
+            return {"fragments": shards,
+                    "tags": self.tag_step(shards, fragment_ids)}
+        return self._fused(segments, fragment_ids)

@@ -23,8 +23,8 @@ class AuditBackend:
         self.device = resolve_device(device)
         self.key = key.to(self.device)
 
-    def _t(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device)
+    def _t(self, x) -> torch.Tensor | None:
+        return None if x is None else torch.as_tensor(x).to(self.device)
 
     def tag_fragments(self, fragment_ids, fragments):
         return podr2.tag_fragments(self.key, fragment_ids, self._t(fragments))
@@ -37,9 +37,11 @@ class AuditBackend:
         return podr2.prove_batch(self._t(fragments), self._t(tags),
                                  self._t(idx), self._t(nu))
 
-    def prove_aggregate(self, fragments, tags, idx, nu, r):
+    def prove_aggregate(self, fragments, tags, idx, nu, r,
+                        sectors: int = podr2.SECTORS):
         return podr2.prove_aggregate(self._t(fragments), self._t(tags),
-                                     self._t(idx), self._t(nu), self._t(r))
+                                     self._t(idx), self._t(nu), self._t(r),
+                                     sectors)
 
     def aggregate_coeffs(self, seed: bytes, fragment_ids):
         return podr2.aggregate_coeffs(seed, fragment_ids, self.device)

@@ -193,44 +193,55 @@ def aggregate_coeffs(seed: bytes, ids, device=None) -> torch.Tensor:
 
 
 def prove_batch(fragments: torch.Tensor, tags: torch.Tensor,
-                idx: torch.Tensor, nu: torch.Tensor,
+                idx: torch.Tensor | None, nu: torch.Tensor,
                 sectors: int = SECTORS) -> tuple[torch.Tensor, torch.Tensor]:
-    """[F, bytes], [F, blocks, limbs] -> (mu [F, sectors], sigma [F,
-    limbs]) int32. Only the challenged blocks are read."""
-    f, nbytes = fragments.shape
+    """[..., F, bytes], [..., F, blocks, limbs] -> (mu [..., F, sectors],
+    sigma [..., F, limbs]) int32. Only the challenged blocks are read.
+    ``idx`` None: the inputs already hold just the challenged blocks, in
+    challenge order (a caller that gathered them first)."""
+    *lead, nbytes = fragments.shape
     lanes = sectors * pf.BYTES_PER_ELEM
-    idx = idx.to(torch.int64)
-    sel = fragments.reshape(f, nbytes // lanes, lanes)[:, idx]   # [F, c, lanes]
-    m = pf.pack_bytes(sel)                                       # [F, c, s]
-    nu = nu.to(torch.int64)
-    mu = pf.dotmod(m, nu[None, :, None], dim=1)
-    sigma = pf.dotmod(tags[:, idx], nu[None, :, None], dim=1)
+    sel = fragments.reshape(*lead, nbytes // lanes, lanes)
+    if idx is not None:
+        idx = idx.to(torch.int64)
+        sel, tags = sel[..., idx, :], tags[..., idx, :]          # [..., c, *]
+    m = pf.pack_bytes(sel)                                       # [..., c, s]
+    nu = nu.to(torch.int64)[:, None]
+    mu = pf.dotmod(m, nu, dim=-2)
+    sigma = pf.dotmod(tags, nu, dim=-2)
     return mu.to(torch.int32), sigma.to(torch.int32)
 
 
 def prove_aggregate(fragments, tags, idx, nu, r,
                     sectors: int = SECTORS) -> tuple[torch.Tensor, torch.Tensor]:
     """One constant-size proof (mu [sectors], sigma [limbs]) over all
-    fragments, folded with coefficients r [F]."""
+    fragments, folded with coefficients r [F]. Leading axes are
+    independent proofs (missions): r [..., F] -> mu [..., sectors],
+    sigma [..., limbs]."""
     mu_f, sigma_f = prove_batch(fragments, tags, idx, nu, sectors)
-    r = r.to(torch.int64)[:, None]
-    return (pf.dotmod(r, mu_f, dim=0).to(torch.int32),
-            pf.dotmod(r, sigma_f, dim=0).to(torch.int32))
+    r = r.to(torch.int64)[..., None]
+    return (pf.dotmod(r, mu_f, dim=-2).to(torch.int32),
+            pf.dotmod(r, sigma_f, dim=-2).to(torch.int32))
 
 
 def verify_aggregate(key: Podr2Key, fragment_ids_, num_blocks: int, idx, nu,
                      r, mu, sigma) -> torch.Tensor:
     """The TEE's check of an aggregated proof against the owed fragment
-    set: a bool scalar, true only when every limb equation holds."""
+    set: a bool scalar, true only when every limb equation holds.
+    Leading axes are independent checks (missions): ids [..., F, 2], r
+    [..., F], mu [..., sectors], sigma [..., limbs] -> bool [...], the
+    PRF of every mission's ids from one launch."""
     dev = mu.device
     key = key.to(dev)
-    ids = _id_pairs(fragment_ids_, dev)
+    r = r.to(dev, torch.int64)
+    ids = _id_pairs(fragment_ids_, dev)                          # [N*F, 2]
     idx = idx.to(dev, torch.int64)
     f = prf_blocks(key.prf_key, ids, idx, idx.shape[0], key.limbs)
-    lhs_f = pf.dotmod(nu.to(dev)[None, :, None], f, dim=1)        # [F, limbs]
-    lhs = pf.addmod(pf.dotmod(r.to(dev)[:, None], lhs_f, dim=0),
-                    pf.dotmod(key.alpha, mu[:, None], dim=0))
-    return torch.all(lhs == sigma.to(torch.int64))
+    lhs_f = pf.dotmod(nu.to(dev)[None, :, None], f, dim=1)       # [N*F, limbs]
+    lhs_f = lhs_f.reshape(*r.shape, -1)                          # [..., F, limbs]
+    lhs = pf.addmod(pf.dotmod(r[..., None], lhs_f, dim=-2),
+                    pf.dotmod(key.alpha, mu[..., :, None], dim=-2))
+    return torch.all(lhs == sigma.to(torch.int64), dim=-1)
 
 
 def verify_from_f(alpha, f, idx, nu, mu, sigma) -> torch.Tensor:

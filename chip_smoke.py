@@ -24,9 +24,26 @@ limit):
    tampered fragment that must fail, and a byte-exact repair of a lost
    data fragment; the kernels' launch counters are zeroed just before
    and read just after;
-4. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+4. serve: the submission engine (``cess_tpu_torch.serve``) at the main
+   path's RS(2,1) and 16 MiB segments, default ``AdmissionPolicy``, 8
+   submitter threads (4 pass numpy, 4 CUDA tensors): encodes of 512 MiB
+   in all, tags of their 96 fragments, one round's aggregated proofs and
+   verifications (one tampered), and, after ``warm_repair``, 4
+   reconstructs; every result byte-equal to the direct path; then each
+   kernel the engine ran, at every bucket shape it ran (read from its
+   program cache: the 96 fragments' tag padded to 128, verify_agg's
+   missions x F bucket x 753, the encode and warm repair buckets), on
+   the phase's inputs, byte-exact against its plain version; per-class
+   batches, occupancy, pad waste and latency, program-cache and warm
+   counts; ``gf_apply``, ``prf_blocks`` and ``podr2_tag`` must launch
+   under the engine and some class must coalesce;
+5. stream: 70 pinned segments of 16 MiB through ``StreamingIngest(pipe,
+   batch=32)`` at depth 2 and 1, every batch byte-equal to the direct
+   forward, GiB/s from host bytes and the stage clocks beside a pinned
+   ``copy_`` of the same bytes (the stream's bound);
+6. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-5. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+7. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -34,10 +51,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-6. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+8. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-7. kernel times beside the plain versions' times and each kernel's
+9. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -48,7 +65,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-8. with ``--parent DIR`` (another checkout of the repository, e.g. the
+10. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -61,7 +78,9 @@ A kernel's ``ms`` is one wrapper call between two events, the median of
 ``device_ms`` leaves that out: ``graph_ms`` captures 20 calls of the
 wrapper in a CUDA graph and replays it.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last
+The line before the last is the ``{"kernels": [...]}`` record (each
+entry's ``launches`` from the main path, ``launches_serve`` and
+``launches_stream`` from phases 4 and 5); the last
 is ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
@@ -181,6 +200,367 @@ def graph_ms(fn, runs: int = TIMED_LAUNCHES, reps: int = GRAPH_REPLAYS
     del graph
     torch.cuda.empty_cache()
     return statistics.median(times)
+
+
+def host_ms(fn, runs: int = 3) -> float:
+    """Median host-clock time of ``fn`` followed by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def class_line(snap: dict) -> str:
+    """Each engine class that ran: batches, batched requests, occupancy,
+    pad waste, p50/p99 latency."""
+    parts = []
+    for cls, st in snap["classes"].items():
+        if st["batches"]:
+            parts.append(
+                f"{cls} {st['batches']} batches / {st['completed']} requests "
+                f"(occupancy {st['batch_occupancy']}, pad waste "
+                f"{st['pad_waste']}, p50 {st['latency_p50'] * 1e3:.3f} ms, "
+                f"p99 {st['latency_p99'] * 1e3:.3f} ms)")
+    return "; ".join(parts)
+
+
+def serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
+                        repairers: int, errs: dict) -> str:
+    """Each kernel the engine launched, at every bucket shape it ran: the
+    shapes come from the keys of the engine's program cache (``progs``),
+    the inputs are the phase's own, stacked and zero-padded as the engine
+    pads them (verify_agg: the 9 missions, thread 0's twice, each padded
+    to F_bucket). The kernel runs at the whole shape; its plain version
+    runs on slices of rows (every op keeps rows apart) and must give the
+    same bytes. Returns the shapes held."""
+    import torch
+    from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, rs_kernel
+
+    cfg = pipe.config
+    key = pipe.podr2_key
+    n, blocks, limbs = cfg.fragment_size, cfg.blocks_per_fragment, key.limbs
+    every = torch.arange(blocks, device=dev)
+
+    def padded(x, rows):
+        out = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=dev)
+        out[:min(rows, x.shape[0])] = x[:rows]
+        return out
+
+    def held(name, got, plain, step):
+        for s in range(0, got.shape[0], step):
+            e = max_err(got[s:s + step], plain(s, s + step))
+            errs[name] = max(errs[name], e)
+            check(e == 0, f"serve: {name} at {tuple(got.shape)} differs "
+                  f"from its plain version")
+
+    def gf_at(mat, x):
+        tab = rs_kernel.tables(mat, dev)
+        got = rs_kernel.gf_apply(tab, x)
+        held("gf_apply", got, lambda s, e: rs_kernel.gf_apply_plain(
+            tab, x[s:e]), 4)
+        return f"gf_apply {tuple(x.shape)}"
+
+    frags = torch.cat(encs).reshape(-1, n)
+    id_rows = torch.cat(ids)
+    missions = [ids[0]] + list(ids)
+    done = []
+    for k in progs:
+        if k[0] == "encode":
+            done.append(gf_at(gf.cauchy_parity_matrix(cfg.k, cfg.m),
+                              padded(torch.cat(data), k[3])))
+        elif k[0] == "repair":
+            present, missing, bucket = k[1], k[2], k[4]
+            surv = torch.cat([x[:, list(present)] for x in encs[:repairers]])
+            done.append(gf_at(gf.repair_matrix(cfg.k, cfg.m, present,
+                                               missing),
+                              padded(surv, bucket)))
+        elif k[0] == "tag":
+            b = k[2]
+            f, i = padded(frags, b), padded(id_rows, b)
+            prf_lm = podr2_kernel.prf_blocks(key.prf_key, i, None, blocks,
+                                             limbs, limb_major=True)
+            held("prf_blocks", prf_lm, lambda s, e: prf.prf_plain(
+                key.prf_key, i[s:e], every, limbs).transpose(1, 2), 8)
+            tags = podr2_kernel.podr2_tag(
+                key.weights, prf_lm, f.view(b, blocks, podr2.BLOCK_BYTES))
+            held("podr2_tag", tags, lambda s, e: podr2_kernel.podr2_tag_plain(
+                key.weights, prf_lm[s:e],
+                f[s:e].view(e - s, blocks, podr2.BLOCK_BYTES)), 8)
+            done.append(f"prf_blocks (limb-major) and podr2_tag {b} x "
+                        f"{blocks}")
+            del f, prf_lm, tags
+        elif k[0] == "verify_agg":
+            fb, rb = k[2], k[3]
+            st = torch.zeros((rb, fb, 2), dtype=torch.int64, device=dev)
+            for j, m in enumerate(missions[:rb]):
+                st[j, :m.shape[0]] = m
+            flat = st.view(-1, 2)
+            got = podr2_kernel.prf_blocks(key.prf_key, flat, idx,
+                                          idx.numel(), limbs)
+            held("prf_blocks", got, lambda s, e: prf.prf_plain(
+                key.prf_key, flat[s:e], idx, limbs), 64)
+            done.append(f"prf_blocks {rb} x {fb} x {idx.numel()}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ", ".join(done)
+
+
+def serve_phase(pipe, dev, zero_counts, counts, errs: dict,
+                tag: str) -> dict:
+    """The submission engine at full width: RS(2,1), 16 MiB segments, the
+    default AdmissionPolicy, 8 submitter threads (even ones pass numpy,
+    odd ones CUDA tensors). In stages, all threads together: an encode of
+    4 segments each (512 MiB in all), a tag of the thread's 12 fragments
+    with id pairs, one challenge round's aggregated proof and its
+    verification (thread 0 also a tampered one); then, after
+    ``warm_repair``, threads 0-3 reconstruct fragment 0 of their segments
+    from (1, 2). Every result is held byte for byte to the direct path
+    on the same inputs. Returns the launches of the engine's work."""
+    import threading
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.ops.rs import TorchCodec
+    from cess_tpu_torch.serve import make_engine
+
+    cfg = pipe.config
+    n, rows, blocks = cfg.fragment_size, cfg.k + cfg.m, cfg.blocks_per_fragment
+    threads, per, repairers = 8, 4, 4
+    seed = b"chip-smoke-serve-round"
+    idx, nu = podr2.gen_challenge(seed, blocks, device=dev)
+    data = [rand_bytes((per, cfg.k, n), 40 + i, dev) for i in range(threads)]
+    ids = [torch.stack([torch.arange(i * per * rows, (i + 1) * per * rows,
+                                     device=dev),
+                        torch.full((per * rows,), 7, device=dev)], dim=1)
+           for i in range(threads)]
+    coeffs = [podr2.aggregate_coeffs(seed, x, device=dev) for x in ids]
+
+    def side(i, x):
+        """Thread i's view of x: numpy (the JAX package's uint32 for field
+        elements and ids) for even threads, the CUDA tensor for odd."""
+        if i % 2:
+            return x
+        x = x.cpu().numpy()
+        return x if x.dtype == np.uint8 else x.astype(np.uint32)
+
+    payload = [side(i, d) for i, d in enumerate(data)]
+    host_ids = [side(i, x) for i, x in enumerate(ids)]
+    host_r = [side(i, x) for i, x in enumerate(coeffs)]
+    torch.cuda.synchronize()
+    eng = make_engine(cfg.k, cfg.m, podr2_key=pipe.podr2_key)
+    res = [dict() for _ in range(threads)]
+    errors = []
+    stage = threading.Barrier(threads + 1)
+
+    def worker(i):
+        try:
+            stage.wait()
+            enc = eng.encode(payload[i])
+            res[i]["enc"] = enc
+            frs = enc.reshape(per * rows, n)
+            stage.wait()
+            stage.wait()
+            tags = eng.tag_fragments(host_ids[i], frs)
+            res[i]["tags"] = tags
+            stage.wait()
+            stage.wait()
+            mu, sigma = eng.prove_aggregate(frs, tags, idx, nu, host_r[i])
+            res[i]["proof"] = (mu, sigma)
+            futs = [eng.submit_verify_aggregate(host_ids[i], blocks, idx, nu,
+                                                host_r[i], mu, sigma)]
+            if i == 0:
+                bad = (np.asarray(sigma).astype(np.int64) + 1) % podr2.pf.P
+                futs.append(eng.submit_verify_aggregate(
+                    host_ids[i], blocks, idx, nu, host_r[i], mu, bad))
+            res[i]["verdicts"] = [f.result() for f in futs]
+            stage.wait()
+            stage.wait()
+            if i < repairers:
+                res[i]["rebuilt"] = eng.reconstruct(enc[:, 1:], (1, 2), (0,))
+            stage.wait()
+        except BaseException as e:      # reported by the main thread
+            errors.append((i, e))
+            stage.abort()
+
+    workers = [threading.Thread(target=worker, args=(i,))
+               for i in range(threads)]
+    for w in workers:
+        w.start()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(3):                  # encode, tag, prove + verify
+            stage.wait()
+            stage.wait()
+        # warm the repair buckets the 4 x 4 rows can land in while no
+        # thread works on the card (CUDA graph captures)
+        eng.warm_repair([((1, 2), (0,))], n, buckets=(4, 8, 16))
+        stage.wait()
+        stage.wait()
+    except threading.BrokenBarrierError:
+        pass
+    for w in workers:
+        w.join(600)
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    snap = eng.stats_snapshot()
+    progs = eng.programs.keys()
+    warm_hits = eng.codec.warm_hits
+    eng.close()
+    check(not errors, f"serve: a submitter failed: {errors[:1]}")
+    check(not any(w.is_alive() for w in workers), "serve: a submitter hung")
+
+    def t(x):
+        return torch.as_tensor(x).to(dev)
+
+    codec = TorchCodec(cfg.k, cfg.m, device=dev)
+    key = pipe.podr2_key
+    encs = []
+    for i in range(threads):
+        r = res[i]
+        check(isinstance(r["enc"], np.ndarray) == (i % 2 == 0)
+              and isinstance(r["tags"], np.ndarray) == (i % 2 == 0),
+              f"serve: thread {i} got results in the wrong domain")
+        enc = codec.encode(data[i])
+        encs.append(enc)
+        check(torch.equal(t(r["enc"]), enc), f"serve: encode {i} differs")
+        frs = enc.reshape(per * rows, n)
+        tags = podr2.tag_fragments(key, ids[i], frs)
+        check(torch.equal(t(r["tags"]), tags), f"serve: tags {i} differ")
+        mu, sigma = podr2.prove_aggregate(frs, tags, idx, nu, coeffs[i])
+        check(torch.equal(t(r["proof"][0]), mu)
+              and torch.equal(t(r["proof"][1]), sigma),
+              f"serve: proof {i} differs")
+        ok = bool(podr2.verify_aggregate(key, ids[i], blocks, idx, nu,
+                                         coeffs[i], mu, sigma))
+        want = [ok] if i else [ok, bool(podr2.verify_aggregate(
+            key, ids[i], blocks, idx, nu, coeffs[i], mu,
+            (sigma.to(torch.int64) + 1) % podr2.pf.P))]
+        check(r["verdicts"] == want == ([True] if i else [True, False]),
+              f"serve: verdicts {i} {r['verdicts']} != {want}")
+        if i < repairers:
+            rebuilt = codec.reconstruct(enc[:, 1:], (1, 2), (0,))
+            check(torch.equal(t(r["rebuilt"]), rebuilt)
+                  and torch.equal(rebuilt, enc[:, :1]),
+                  f"serve: reconstruct {i} differs")
+    del res, payload, enc, frs, tags
+    held = serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
+                               repairers, errs)
+    del data, encs
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")),
+          f"serve: a kernel was not launched by the engine: {launches}")
+    coalesced = [c for c, st in snap["classes"].items()
+                 if st["batches"] and st["batch_occupancy"] > 1]
+    check(coalesced, "serve: no class coalesced two requests into a batch")
+    check(warm_hits > 0, "serve: no reconstruct replayed a warm program")
+    # what a host member's copies cost on the card's host: one numpy
+    # submitter's 64 MiB in, its 96 MiB of fragments back (pageable)
+    host_in = np.ones((per, cfg.k, n), np.uint8)
+    on_card = torch.empty(host_in.shape, dtype=torch.uint8, device=dev)
+    out_card = torch.empty((per, rows, n), dtype=torch.uint8, device=dev)
+    h2d_ms = host_ms(lambda: on_card.copy_(torch.from_numpy(host_in)))
+    d2h_ms = host_ms(lambda: out_card.cpu())
+    del host_in, on_card, out_card
+    print(f"phase serve: RS(2,1) engine, {threads} submitter threads (4 "
+          f"numpy, 4 CUDA tensors), {threads * per} x 16 MiB segments "
+          f"encoded, {threads * per * rows} fragments tagged, {threads} "
+          f"proofs verified (tampered false), {repairers} reconstructs; all "
+          f"byte-equal to the direct path; kernels at the engine's shapes "
+          f"byte-exact against their plain versions: {held}; "
+          f"{class_line(snap)}; "
+          f"programs_built {snap['programs_built']}, programs_reused "
+          f"{snap['programs_reused']}, warm_hits {warm_hits}; phase wall "
+          f"{wall_s * 1e3:.3f} ms; one numpy member's pageable copies: 64 "
+          f"MiB in {h2d_ms:.3f} ms ({64 * MIB / h2d_ms / 1e6:.3f} GB/s), 96 "
+          f"MiB out {d2h_ms:.3f} ms ({96 * MIB / d2h_ms / 1e6:.3f} GB/s); "
+          f"launches {launches} {tag}")
+    return launches
+
+
+def stream_phase(pipe, dev, zero_counts, counts, tag: str) -> dict:
+    """70 segments of 16 MiB (1.09 GiB; the last batch holds 6 rows and
+    is padded) in pinned host memory through ``StreamingIngest(pipe,
+    batch=32)`` at depth 2 and 1. A first run at each depth holds every
+    yielded batch byte for byte to ``pipe`` on the same rows with the
+    stream's global ids; a second, timed run gives GiB/s from host bytes
+    and the stage clocks. Beside them, the stream's bound: a pinned
+    ``copy_`` of the same bytes to the card. Returns the launches of the
+    timed depth-2 run."""
+    import torch
+    from cess_tpu_torch.serve import StreamingIngest
+
+    cfg = pipe.config
+    nseg, batch = 70, 32
+    rows = cfg.k + cfg.m
+    seg_dev = rand_bytes((nseg, cfg.segment_size), 60, dev)
+    src = torch.empty(seg_dev.shape, dtype=torch.uint8, pin_memory=True)
+    src.copy_(seg_dev)
+    nbytes = src.numel()
+    gib = nbytes / (1 << 30)
+    line = {}
+    launches = None
+    for depth in (2, 1):
+        ing = StreamingIngest(pipe, batch, depth=depth)
+        off = 0
+        for out in ing.run(src):
+            real = out["rows"]
+            want = pipe(seg_dev[off:off + real],
+                        torch.arange(off * rows, (off + real) * rows,
+                                     device=dev))
+            check(torch.equal(out["fragments"], want["fragments"])
+                  and torch.equal(out["tags"], want["tags"]),
+                  f"stream: batch at row {off} (depth {depth}) differs from "
+                  f"the direct forward")
+            off += batch
+            del out, want
+        check(off == 3 * batch, f"stream: {off // batch} batches, not 3")
+        before = ing.stats.raw()
+        torch.cuda.synchronize()
+        if depth == 2:
+            zero_counts()
+        t0 = time.perf_counter()
+        for out in ing.run(src):
+            del out
+        wall = time.perf_counter() - t0
+        if depth == 2:
+            launches = counts()
+        d = {k: v - before[k] for k, v in ing.stats.raw().items()}
+        line[depth] = (gib / wall, wall, d)
+        del ing
+        torch.cuda.empty_cache()
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")),
+          f"stream: a kernel was not launched by the stream: {launches}")
+    dst = torch.empty_like(seg_dev)
+    copy_ms = event_ms(lambda: dst.copy_(src, non_blocking=True), 3)
+    copy_gibs = gib / (copy_ms / 1e3)
+    del dst, seg_dev, src
+    rate2 = line[2][0]
+
+    def stages(depth):
+        rate, wall, d = line[depth]
+        return (f"depth {depth}: {rate:.3f} GiB/s from host bytes ({wall * 1e3:.3f} "
+                f"ms wall; h2d_s {d['h2d_s']:.6f}, dispatch_s "
+                f"{d['dispatch_s']:.6f}, stall_s {d['stall_s']:.6f}, "
+                f"{d['batches']} batches, {d['padded_segments']} padded "
+                f"segments)")
+
+    print(f"phase stream: {nseg} x 16 MiB pinned segments ({gib:.3f} GiB) "
+          f"through StreamingIngest(batch={batch}), every batch byte-equal to "
+          f"the direct forward at both depths; {stages(2)}; {stages(1)}; "
+          f"bound: pinned copy_ of the same bytes {copy_ms:.3f} ms = "
+          f"{copy_gibs:.3f} GiB/s ({nbytes / copy_ms / 1e6:.3f} GB/s); depth 2 "
+          f"at {rate2 / copy_gibs:.1%} of the copy; launches {launches} {tag}")
+    return launches
 
 
 def parent_turns(parent: str, cases, tag: str) -> None:
@@ -496,7 +876,15 @@ def main(argv: list[str]) -> int:
     del out, frags, flat, tags, rebuilt, segments
     torch.cuda.empty_cache()
 
-    # 4. BASELINE geometry RS(4,8) ----------------------------------------
+    # 4. serve: the submission engine under 8 submitter threads ----------
+    launches_serve = serve_phase(pipe, dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 5. stream: pinned staging of 70 segments through StreamingIngest ---
+    launches_stream = stream_phase(pipe, dev, zero_counts, counts, tag)
+    torch.cuda.empty_cache()
+
+    # 6. BASELINE geometry RS(4,8) ----------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -529,7 +917,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 5. the xor path: RS(4,8) under strategy "xor", audited and repaired --
+    # 7. the xor path: RS(4,8) under strategy "xor", audited and repaired --
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -606,7 +994,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 6. known answer -------------------------------------------------------
+    # 8. known answer -------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -615,7 +1003,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 7. kernel times at the main paths' shapes ----------------------------
+    # 9. kernel times at the main paths' shapes ----------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -716,7 +1104,10 @@ def main(argv: list[str]) -> int:
         record.append({
             "name": name, "shape": shapes[label], "route": "cuda",
             "source": sources[name][0], "replaces": sources[name][1],
-            "launches": path_launches[label], "max_abs_err": errs[name],
+            "launches": path_launches[label],
+            "launches_serve": launches_serve.get(name, 0),
+            "launches_stream": launches_stream.get(name, 0),
+            "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -17,6 +17,7 @@ from cess_tpu_torch import kat
 from cess_tpu_torch.convert import pipeline_from_arrays
 from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
 from cess_tpu_torch.ops import podr2
+from cess_tpu_torch.serve import make_engine
 
 SEGMENT = 64 * 1024
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -142,6 +143,8 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch.ops.audit_backend, cess_tpu_torch.ops.rs\n"
             "import cess_tpu_torch.ops.xor_sched, cess_tpu_torch.ops.rs_xor\n"
             "import cess_tpu_torch.ops.rs_ref, cess_tpu_torch.ops.regen\n"
+            "import cess_tpu_torch.serve, cess_tpu_torch.serve.engine\n"
+            "import cess_tpu_torch.serve.stream, cess_tpu_torch.obs.prom\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"
@@ -178,3 +181,13 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         podr2.gen_challenge(b"x", 128)
     with pytest.raises(RuntimeError):
         StoragePipeline(PipelineConfig(segment_size=SEGMENT), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine(2, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine(podr2_key=podr2.Podr2Key.generate(0, device="cpu"))
+    eng = make_engine(2, 1, rs_backend="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            StoragePipeline(PipelineConfig(segment_size=SEGMENT), engine=eng)
+    finally:
+        eng.close()

@@ -160,6 +160,45 @@ def test_proofs_match_and_verify_across_packages():
 
 
 @pytest.mark.parametrize("limbs", [2, 3])
+def test_mission_axis_matches_jax_per_mission(limbs):
+    """A leading mission axis on prove_aggregate / verify_aggregate (the
+    engine's stacked classes) gives each mission the TPU package's
+    one-mission answer; idx None takes blocks gathered beforehand."""
+    jk, key = both_keys(9, limbs)
+    missions, per = 3, 2
+    data = frags(missions * per, seed=40 + limbs)
+    ids = hash_ids(missions * per, b"m").astype(np.int64)
+    tags = podr2.tag_fragments(key, ids, torch.from_numpy(data))
+    idx, nu = podr2.gen_challenge(b"missions", BLOCKS, device="cpu")
+    r = podr2.aggregate_coeffs(b"missions", ids, device="cpu")
+    fr = torch.from_numpy(data).reshape(missions, per, FRAG_BYTES)
+    tg = tags.reshape(missions, per, BLOCKS, limbs)
+    rr = r.reshape(missions, per)
+    mu, sigma = podr2.prove_aggregate(fr, tg, idx, nu, rr)
+    gathered = fr.reshape(missions, per, BLOCKS, podr2.BLOCK_BYTES)[:, :, idx]
+    mu_g, sigma_g = podr2.prove_aggregate(
+        gathered.reshape(missions, per, -1), tg[:, :, idx], None, nu, rr)
+    assert torch.equal(mu, mu_g) and torch.equal(sigma, sigma_g)
+    jidx = jnp.asarray(idx.numpy().astype(np.int32))
+    for i in range(missions):
+        s = slice(i * per, (i + 1) * per)
+        jmu, jsg = jpodr2.prove_aggregate(
+            jnp.asarray(data[s]), jnp.asarray(u32(tags[s])), jidx,
+            jnp.asarray(u32(nu)), jnp.asarray(u32(r[s])))
+        np.testing.assert_array_equal(u32(mu[i]), np.asarray(jmu))
+        np.testing.assert_array_equal(u32(sigma[i]), np.asarray(jsg))
+    forged = sigma.clone()
+    forged[1, 0] = (forged[1, 0] + 1) % pf.P
+    ok = podr2.verify_aggregate(key, torch.from_numpy(ids).reshape(
+        missions, per, 2), BLOCKS, idx, nu, rr, mu, forged)
+    assert ok.tolist() == [True, False, True]
+    assert [bool(jpodr2.verify_aggregate(
+        jk, ids[i * per:(i + 1) * per], BLOCKS, jidx, jnp.asarray(u32(nu)),
+        jnp.asarray(u32(rr[i])), jnp.asarray(u32(mu[i])),
+        np.asarray(u32(forged[i])))) for i in range(missions)] == ok.tolist()
+
+
+@pytest.mark.parametrize("limbs", [2, 3])
 def test_prove_verify_batch_match(limbs):
     jk, key = both_keys(8, limbs)
     data = frags(3, seed=30 + limbs)
