@@ -14,7 +14,8 @@ Layout: ``constants``; ``ops`` (``gf``, ``pfield``, ``prf``,
 its fused encode + tag program); ``serve`` (the submission engine
 ``SubmissionEngine`` / ``make_engine`` and the pinned-memory streaming
 ingest ``StreamingIngest``, with ``policy``, ``buckets`` and ``stats``);
-``obs.prom`` (the engine's latency histograms); ``convert`` (keys from
-the TPU package's arrays); ``kat`` (the known-answer digest);
-``_build``.
+``resilience`` (fault injection, retry, breakers, their counters);
+``obs`` (``trace``, ``flight``, ``prom``: spans, the flight recorder, the
+engine's latency histograms); ``convert`` (keys from the TPU package's
+arrays); ``kat`` (the known-answer digest); ``_build``.
 """

@@ -6,7 +6,9 @@ objects are linked into one shared library under ``build/kernels/`` of
 the checkout, named by a hash of the sources and flags: an unchanged
 tree reuses the library, a changed one builds anew. The kernel modules
 (``ops/rs_kernel.py``, ``ops/podr2_kernel.py``) set the ``argtypes`` of
-the functions they call.
+the functions they call. A failed compile, link or load raises
+:class:`KernelBuildError`, which the serving engine never absorbs into a
+CPU fallback.
 """
 from __future__ import annotations
 
@@ -26,14 +28,18 @@ _lib: ctypes.CDLL | None = None
 build_log = ""             # nvcc's output (ptxas register and spill lines)
 
 
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be compiled, linked or loaded."""
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                       "machine with the CUDA toolkit")
+    raise KernelBuildError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
 
 
 def sources(src_dir: Path = SRC_DIR) -> list[Path]:
@@ -75,14 +81,14 @@ def build(src_dir: Path = SRC_DIR) -> Path:
             failed.append(src.name)
     build_log = "".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        raise KernelBuildError(f"nvcc failed on {failed}:\n{build_log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
          "-o", str(tmp), *map(str, objs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, out)
     for obj in objs:
         obj.unlink()
@@ -93,7 +99,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(str(build()))
+        path = build()
+        try:
+            _lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {path}: {e}") from e
     return _lib
 
 

@@ -16,6 +16,12 @@ coalesce into shared device batches; results are the same bytes.
 ``fused_program`` is the direct encode + tag as one callable with no
 host round trip, the program the streaming ingest
 (``serve/stream.py``) runs per batch.
+
+``encode_step``, ``tag_step`` and ``forward`` open the TPU package's
+``pipeline.encode`` / ``pipeline.tag`` / ``pipeline.forward`` spans
+(``obs/trace.py``; no-ops unless a tracer is armed) and take its
+``tenant=`` tag, which rides into the engine's submits and is ignored
+on the direct path.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from torch import nn
 
 from .. import constants
 from .._device import resolve_device
+from ..obs import trace
 from ..ops import gf, podr2, rs_xor, xor_sched
 from ..ops.rs import STRATEGIES, default_strategy, uses_xor
 from ..ops.rs_kernel import gf_apply, tables
@@ -123,13 +130,19 @@ class StoragePipeline(nn.Module):
         return segments.contiguous().view(segments.shape[0], cfg.k,
                                           cfg.fragment_size)
 
-    def encode_step(self, segments: torch.Tensor) -> torch.Tensor:
-        """[B, segment_size] uint8 -> [B, k+m, fragment_size] uint8."""
+    def encode_step(self, segments: torch.Tensor,
+                    tenant: str | None = None) -> torch.Tensor:
+        """[B, segment_size] uint8 -> [B, k+m, fragment_size] uint8.
+        ``tenant`` rides into the engine submit (per-tenant accounting);
+        the direct path ignores it."""
         data = self._data(segments)
-        if self.engine is not None and self.engine.codec is not None:
-            # a device tensor in, a device tensor back: no host trip
-            return torch.as_tensor(self.engine.encode(data)).to(self.device)
-        return self._encode(data)
+        with trace.span("pipeline.encode", sys="pipeline",
+                        segments=data.shape[0]):
+            if self.engine is not None and self.engine.codec is not None:
+                # a device tensor in, a device tensor back: no host trip
+                return torch.as_tensor(self.engine.encode(
+                    data, tenant=tenant)).to(self.device)
+            return self._encode(data)
 
     def _encode(self, data: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -144,27 +157,31 @@ class StoragePipeline(nn.Module):
                      sys_out=out[:, :cfg.k])
         return out
 
-    def tag_step(self, fragments: torch.Tensor,
-                 fragment_ids=None) -> torch.Tensor:
+    def tag_step(self, fragments: torch.Tensor, fragment_ids=None,
+                 tenant: str | None = None) -> torch.Tensor:
         """[B, k+m, fragment_size] -> tags [B, k+m, blocks, limbs] int32.
 
         fragment_ids: [B, k+m] scalar ids or [B, k+m, 2] hash word pairs
         (``podr2.fragment_id_from_hash``). The default ``arange(B*(k+m))``
         is for benches and demos only: ids must be unique per key. With
         an engine, id pairs are tagged through it; scalar ids (and the
-        default) stay on the direct path, as in the TPU package."""
+        default) stay on the direct path, as in the TPU package.
+        ``tenant`` as for ``encode_step``."""
         fragments = torch.as_tensor(fragments).to(self.device)
         b, rows, n = fragments.shape
         if fragment_ids is not None \
                 and not isinstance(fragment_ids, (torch.Tensor, np.ndarray)):
             fragment_ids = np.asarray(fragment_ids)
-        if fragment_ids is not None and fragment_ids.ndim == 3 \
-                and self.engine is not None and self.engine.audit is not None:
-            tags = torch.as_tensor(self.engine.tag_fragments(
-                fragment_ids.reshape(b * rows, 2),
-                fragments.reshape(b * rows, n))).to(self.device)
-            return tags.reshape(b, rows, *tags.shape[1:])
-        return self._tag(fragments, fragment_ids)
+        with trace.span("pipeline.tag", sys="pipeline", fragments=b * rows):
+            if fragment_ids is not None and fragment_ids.ndim == 3 \
+                    and self.engine is not None \
+                    and self.engine.audit is not None:
+                tags = torch.as_tensor(self.engine.tag_fragments(
+                    fragment_ids.reshape(b * rows, 2),
+                    fragments.reshape(b * rows, n),
+                    tenant=tenant)).to(self.device)
+                return tags.reshape(b, rows, *tags.shape[1:])
+            return self._tag(fragments, fragment_ids)
 
     def _tag(self, fragments: torch.Tensor, fragment_ids) -> torch.Tensor:
         b, rows, n = fragments.shape
@@ -193,13 +210,16 @@ class StoragePipeline(nn.Module):
         shards = self._encode(self._data(segments))
         return {"fragments": shards, "tags": self._tag(shards, fragment_ids)}
 
-    def forward(self, segments: torch.Tensor,
-                fragment_ids=None) -> dict[str, torch.Tensor]:
+    def forward(self, segments: torch.Tensor, fragment_ids=None,
+                tenant: str | None = None) -> dict[str, torch.Tensor]:
         """Encode and tag: {"fragments": [B, k+m, frag] uint8, "tags":
         [B, k+m, blocks, limbs] int32}: through the engine when one is
-        set, else the fused program."""
-        if self.engine is not None:
-            shards = self.encode_step(segments)
-            return {"fragments": shards,
-                    "tags": self.tag_step(shards, fragment_ids)}
-        return self._fused(segments, fragment_ids)
+        set (carrying ``tenant``), else the fused program."""
+        with trace.span("pipeline.forward", sys="pipeline",
+                        segments=len(segments)):
+            if self.engine is not None:
+                shards = self.encode_step(segments, tenant=tenant)
+                return {"fragments": shards,
+                        "tags": self.tag_step(shards, fragment_ids,
+                                              tenant=tenant)}
+            return self._fused(segments, fragment_ids)

@@ -25,6 +25,13 @@ a CUDA graph captured over static buffers, on the CPU a closure over the
 staged matrix; ``reconstruct`` replays it on an exact match and counts
 ``warm_hits``. Shards are uint8 ``[..., rows, n]``; numpy inputs are
 moved to the codec's device.
+
+Fault seams (``resilience/faults.py``): ``rs.encode``, ``rs.reconstruct``
+and ``rs.decode`` sit on ``TorchCodec`` (and so on ``RegenCodec``) only,
+at the TPU package's positions. The CPU references the engine degrades
+to (``rs_ref.ReferenceCodec``, ``regen.RegenReference``) carry none, so
+a chaos plan failing the card's path leaves the breaker's fallback
+clean.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..resilience import faults
 from . import gf, rs_xor, xor_sched
 from .rs_kernel import gf_apply, tables
 
@@ -176,6 +184,7 @@ class TorchCodec:
     def encode(self, data) -> torch.Tensor:
         """[..., k, n] -> [..., k+m, n]: one kernel pass writes the
         systematic copy and the parity rows into one buffer."""
+        faults.inject("rs.encode")
         data = self._shards(data, self.k, "data")
         *lead, k, n = data.shape
         flat = data.reshape(-1, k, n)
@@ -252,6 +261,7 @@ class TorchCodec:
         """Rows ``missing`` (default: every absent row) from any k
         survivors [..., k, n] ordered as ``present``; a warmed pattern and
         shape replays its warm program."""
+        faults.inject("rs.reconstruct")
         present, missing = self._pattern(present, missing)
         survivors = self._shards(survivors, self.k, "survivor")
         out = self._warm_call((present, missing), survivors)
@@ -262,6 +272,7 @@ class TorchCodec:
 
     def decode_data(self, survivors, present: tuple[int, ...]) -> torch.Tensor:
         """The k data rows from any k survivors ordered as ``present``."""
+        faults.inject("rs.decode")
         apply_ = self._matrix_for("decode", tuple(int(i) for i in present))
         return self._apply(apply_, self._shards(survivors, self.k, "survivor"))
 

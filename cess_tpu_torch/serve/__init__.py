@@ -13,7 +13,8 @@ configured.
 """
 from .engine import EngineFuture, SubmissionEngine, make_engine
 from .policy import (CLASS_PRIORITY, CLASSES, AdmissionPolicy, EngineClosed,
-                     EngineError, EngineSaturated, EngineShed, EngineTimeout)
+                     EngineError, EngineSaturated, EngineShed, EngineTimeout,
+                     EngineUnavailable)
 from .stats import EngineStats, StreamStats
 from .stream import StreamingIngest
 
@@ -28,6 +29,7 @@ __all__ = [
     "EngineShed",
     "EngineStats",
     "EngineTimeout",
+    "EngineUnavailable",
     "StreamStats",
     "StreamingIngest",
     "SubmissionEngine",

@@ -48,13 +48,59 @@ resolves: a future means the batch completed, the latency counters
 measure submit to completion, and a device fault rejects the batch's
 futures instead of resolving them with poisoned tensors. Because the
 engine holds its references to the payloads until that point, a payload
-tensor is never freed while the batch still reads it. A failed batch
-rejects every member's future with the op's error; nothing reruns it on
-the CPU.
+tensor is never freed while the batch still reads it. An engine on the
+card loads the kernel library when it is built, so a failed compile,
+link or load (``_build.KernelBuildError``) raises there.
 
-The TPU engine's opt-in planes (resilience, tracing, SLO and adaptive
-control, admission, the device pool, profiling) are not ported yet, and
-the constructor takes no argument for them.
+Resilience (opt-in, ``resilience=ResilienceConfig(...)``, the port's
+copy of the TPU engine's plane). Without it a failed batch rejects every
+member's future with the op's error and nothing reruns it. With it the
+engine
+
+- retries saturated blocking submits with deterministic backoff inside
+  the request's ONE deadline budget (``resilience/retry.py``);
+- isolates batch failures: a failed coalesced batch re-runs each member
+  alone once, so a poisoned request cannot fail its batch-mates;
+- health-gates each backend ("codec", "audit"): a breaker tripped by
+  the error window serves the batch's host members on the CPU
+  references (the codec's ``rs_ref.ReferenceCodec`` or, for a
+  ``RegenCodec``, ``regen.RegenReference``; the audit's
+  ``make_audit_backend(key, "cpu")``), whose bytes equal the card's,
+  under their own program-cache keys (``key + ("cpu-fallback",)``), and
+  probes its way back;
+- never moves a card member's work to the host: on an engine on the
+  card a tensor member (its result lives on the card) is never
+  degraded; while its breaker is open it is refused with
+  ``EngineUnavailable``, and when its attempt on the card failed it is
+  rejected with that attempt's error;
+- never degrades a ``KernelBuildError``: it reaches every member's
+  future as it is;
+- counts it all as ``cess_resilience_*`` (``degraded_batches`` for the
+  batches a tripped breaker sent to the CPU, ``fallback_batches`` for
+  the members a failed attempt sent there).
+
+The ``engine.dispatch`` fault site sits on every non-degraded attempt.
+A degraded batch runs on the batcher thread under the device lock like
+every batch, holds host members only (numpy payloads, or any member of
+an engine on the CPU) and hands back numpy for numpy members. Its path
+makes no CUDA call, so with the CUDA context itself dead (a sticky
+device error) the engine still serves its numpy members.
+
+Tracing (opt-in, ``tracer=`` or a process-armed ``obs.trace`` tracer).
+Each request carries an ``engine.<cls>`` span from submit to resolve
+(opened on the submitter's thread, carried on the request and finished
+on the batcher's); each batch an ``engine.batch`` span under its first
+member's and a ``device.<op>`` span under that, both naming the
+``backend`` ("primary" or "cpu-fallback"); salvage re-runs and
+fallbacks annotate them. ``Tracer(device_annotations=True)`` wraps each
+dispatch in ``torch.profiler.record_function("cess:<op>")``. Breaker
+trips and recoveries, saturation and a batcher escape are noted in the
+flight journal (``obs/flight.py``) with the engine lock released.
+
+Every submit takes the TPU engine's ``tenant=`` tag; the port has no SLO
+board yet, so it is accepted and ignored. The SLO and adaptive planes,
+admission, the device pool and profiling are not ported and the
+constructor takes no argument for them.
 """
 from __future__ import annotations
 
@@ -69,13 +115,18 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import _build
+from ..obs import flight as _flight
+from ..obs import trace
 from ..ops import audit_backend as ab
 from ..ops import pfield as pf
 from ..ops import podr2
 from ..ops import rs
+from ..resilience import faults
+from ..resilience.retry import Budget
 from .buckets import ProgramCache, bucket_rows
 from .policy import (CLASSES, AdmissionPolicy, EngineClosed,
-                     EngineSaturated, EngineTimeout)
+                     EngineSaturated, EngineTimeout, EngineUnavailable)
 from .stats import EngineStats
 
 _TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8,
@@ -129,6 +180,10 @@ class _Request:
     squeeze: bool = False    # 2-D submit: drop the batch axis on return
     device: bool = False     # tensor payload: the result is a tensor
     ready: Any = None        # CUDA event on the submitter's stream
+    # request span (obs/trace.py), submit to resolve: opened on the
+    # submitter's thread and finished on the batcher's, so it rides
+    # here (contextvars do not cross threads); NOOP_SPAN untraced
+    span: Any = trace.NOOP_SPAN
 
 
 def _host(x) -> np.ndarray:
@@ -174,10 +229,18 @@ class SubmissionEngine:
     """See module docstring. Construct via :func:`make_engine` or pass
     an ``ErasureCodec`` (``ops.rs.TorchCodec`` or ``ops.regen.RegenCodec``)
     and/or an ``AuditBackend`` (``ops.audit_backend``) directly; both
-    must live on one device, the engine's."""
+    must live on one device, the engine's. ``resilience``: an optional
+    ``resilience.ResilienceConfig``; ``tracer``: an optional
+    ``obs.trace.Tracer`` (else the process-armed one, if any)."""
+
+    # op class -> which backend's breaker gates it
+    _BACKEND_OF = {"encode": "codec", "repair": "codec",
+                   "tag": "audit", "verify_batch": "audit",
+                   "verify_agg": "audit", "prove": "audit"}
 
     def __init__(self, codec=None, audit=None,
-                 policy: AdmissionPolicy | None = None):
+                 policy: AdmissionPolicy | None = None,
+                 resilience=None, tracer=None):
         if codec is None and audit is None:
             raise ValueError("engine needs a codec and/or audit backend")
         devices = {g.device for g in (codec, audit) if g is not None}
@@ -185,11 +248,36 @@ class SubmissionEngine:
             raise ValueError(f"codec and audit backend on different "
                              f"devices: {sorted(map(str, devices))}")
         self.device: torch.device = devices.pop()
+        if self.device.type == "cuda":
+            # a kernel that cannot build or load fails the constructor,
+            # never a batch a breaker could absorb
+            _build.library()
         self.codec = codec
         self.audit = audit
+        self.tracer = tracer
         self.policy = policy or AdmissionPolicy()
         self.stats = EngineStats()
         self.programs = ProgramCache(self.stats)
+        self.resilience = resilience
+        self.monitors: dict[str, Any] = {}
+        self._fallback_codec = None
+        self._fallback_audit = None
+        if resilience is not None:
+            self.stats.resilience = resilience.stats
+            if codec is not None:
+                # the host references carry no fault site (ops/rs.py)
+                from ..ops import regen, rs_ref
+
+                ref = regen.RegenReference if hasattr(codec, "fold_symbol") \
+                    else rs_ref.ReferenceCodec
+                self._fallback_codec = ref(codec.k, codec.m)
+                self.monitors["codec"] = resilience.monitor()
+            if audit is not None:
+                self._fallback_audit = ab.make_audit_backend(audit.key, "cpu")
+                self.monitors["audit"] = resilience.monitor()
+            for name, mon in self.monitors.items():
+                mon.name = name           # flight-journal identity
+                resilience.stats.register_monitor(name, mon)
         self._queues: dict[str, collections.deque[_Request]] = {
             c: collections.deque() for c in CLASSES}
         self._lock = threading.Lock()
@@ -206,25 +294,29 @@ class SubmissionEngine:
 
     # ------------------------------------------------------------------
     # submission API: each submit_* returns an EngineFuture; the
-    # same-named plain method is the blocking convenience form.
+    # same-named plain method is the blocking convenience form. Every
+    # one takes ``tenant`` (the TPU engine's accounting tag, unused).
     # ------------------------------------------------------------------
 
     # -- encode (ErasureCodec) ----------------------------------------
-    def submit_encode(self, data, timeout: float | None = None
-                      ) -> EngineFuture:
+    def submit_encode(self, data, timeout: float | None = None,
+                      tenant: str | None = None) -> EngineFuture:
         """data [B, k, n] (or [k, n]) uint8 -> future of [B, k+m, n]."""
         self._need_codec()
         data, squeeze = self._norm_shards(data, self.codec.k)
         key = ("encode", data.shape[1], data.shape[2])
         return self._submit("encode", key, data.shape[0], {"data": data},
-                            {}, timeout, squeeze)
+                            {}, timeout, squeeze, tenant)
 
-    def encode(self, data, timeout: float | None = None):
-        return self.submit_encode(data, timeout=timeout).result()
+    def encode(self, data, timeout: float | None = None,
+               tenant: str | None = None):
+        return self._blocking("encode", self.submit_encode, data,
+                              timeout=timeout, tenant=tenant)
 
     # -- decode / repair (ErasureCodec) --------------------------------
     def submit_reconstruct(self, survivors, present, missing=None,
-                           timeout: float | None = None) -> EngineFuture:
+                           timeout: float | None = None,
+                           tenant: str | None = None) -> EngineFuture:
         """survivors [B, k, n] (or [k, n]) rows ordered as ``present``
         -> future of the recovered [B, len(missing), n] shards."""
         self._need_codec()
@@ -239,30 +331,35 @@ class SubmissionEngine:
         return self._submit("repair", key, survivors.shape[0],
                             {"survivors": survivors},
                             {"present": present, "missing": missing},
-                            timeout, squeeze)
+                            timeout, squeeze, tenant)
 
     def reconstruct(self, survivors, present, missing=None,
-                    timeout: float | None = None):
-        return self.submit_reconstruct(survivors, present, missing,
-                                       timeout=timeout).result()
+                    timeout: float | None = None,
+                    tenant: str | None = None):
+        return self._blocking("repair", self.submit_reconstruct, survivors,
+                              present, missing, timeout=timeout,
+                              tenant=tenant)
 
     def submit_decode_data(self, survivors, present,
-                           timeout: float | None = None) -> EngineFuture:
+                           timeout: float | None = None,
+                           tenant: str | None = None) -> EngineFuture:
         self._need_codec()
         present = tuple(int(i) for i in present)
         survivors, squeeze = self._norm_shards(survivors, len(present))
         key = ("repair", "decode", present, (), survivors.shape[2])
         return self._submit("repair", key, survivors.shape[0],
                             {"survivors": survivors},
-                            {"present": present}, timeout, squeeze)
+                            {"present": present}, timeout, squeeze, tenant)
 
     def decode_data(self, survivors, present,
-                    timeout: float | None = None):
-        return self.submit_decode_data(survivors, present,
-                                       timeout=timeout).result()
+                    timeout: float | None = None,
+                    tenant: str | None = None):
+        return self._blocking("repair", self.submit_decode_data, survivors,
+                              present, timeout=timeout, tenant=tenant)
 
     def submit_repair_symbol(self, pairs, coeff: int,
-                             timeout: float | None = None) -> EngineFuture:
+                             timeout: float | None = None,
+                             tenant: str | None = None) -> EngineFuture:
         """pairs [B, 2, n] (or [2, n]) uint8 (accumulator, fragment)
         rows -> future of the folded [B, 1, n] partial sums (acc ^
         coeff * fragment), the helper hop of the regenerating repair
@@ -278,16 +375,18 @@ class SubmissionEngine:
         key = ("repair", "symbol", (coeff,), (), pairs.shape[2])
         return self._submit("repair", key, pairs.shape[0],
                             {"survivors": pairs}, {"coeff": coeff},
-                            timeout, squeeze)
+                            timeout, squeeze, tenant)
 
     def repair_symbol(self, pairs, coeff: int,
-                      timeout: float | None = None):
-        return self.submit_repair_symbol(pairs, coeff,
-                                         timeout=timeout).result()
+                      timeout: float | None = None,
+                      tenant: str | None = None):
+        return self._blocking("repair", self.submit_repair_symbol, pairs,
+                              coeff, timeout=timeout, tenant=tenant)
 
     # -- tag (AuditBackend, TEE role) ----------------------------------
     def submit_tag(self, fragment_ids, fragments,
-                   timeout: float | None = None) -> EngineFuture:
+                   timeout: float | None = None,
+                   tenant: str | None = None) -> EngineFuture:
         """ids [F, 2] (lo, hi) words, fragments [F, bytes] uint8 ->
         future of tags [F, blocks, limbs] int32."""
         self._need_audit()
@@ -298,18 +397,20 @@ class SubmissionEngine:
             raise ValueError("expected ids [F, 2] and fragments [F, bytes]")
         key = ("tag", frags.shape[1])
         return self._submit("tag", key, frags.shape[0],
-                            {"ids": ids, "fragments": frags}, {}, timeout)
+                            {"ids": ids, "fragments": frags}, {}, timeout,
+                            tenant=tenant)
 
     def tag_fragments(self, fragment_ids, fragments,
-                      timeout: float | None = None):
-        return self.submit_tag(fragment_ids, fragments,
-                               timeout=timeout).result()
+                      timeout: float | None = None,
+                      tenant: str | None = None):
+        return self._blocking("tag", self.submit_tag, fragment_ids,
+                              fragments, timeout=timeout, tenant=tenant)
 
     # -- prove (miner role) --------------------------------------------
     def submit_prove_aggregate(self, fragments, tags, idx, nu, r,
                                sectors: int | None = None,
-                               timeout: float | None = None
-                               ) -> EngineFuture:
+                               timeout: float | None = None,
+                               tenant: str | None = None) -> EngineFuture:
         """One miner's aggregated proof over its held set: fragments
         [F, bytes], tags [F, blocks, limbs], coefficients r [F] ->
         future of (mu [sectors], sigma [limbs]) int32. Requests of the
@@ -331,18 +432,20 @@ class SubmissionEngine:
                             {"fragments": frags, "tags": tag_arr,
                              "r": r_arr},
                             {"idx": idx, "nu": nu, "sectors": sectors},
-                            timeout)
+                            timeout, tenant=tenant)
 
     def prove_aggregate(self, fragments, tags, idx, nu, r,
                         sectors: int | None = None,
-                        timeout: float | None = None):
-        return self.submit_prove_aggregate(fragments, tags, idx, nu, r,
-                                           sectors, timeout=timeout).result()
+                        timeout: float | None = None,
+                        tenant: str | None = None):
+        return self._blocking("prove", self.submit_prove_aggregate,
+                              fragments, tags, idx, nu, r, sectors,
+                              timeout=timeout, tenant=tenant)
 
     # -- verify (TEE role) ---------------------------------------------
     def submit_verify_batch(self, fragment_ids, num_blocks, idx, nu,
-                            mu, sigma, timeout: float | None = None
-                            ) -> EngineFuture:
+                            mu, sigma, timeout: float | None = None,
+                            tenant: str | None = None) -> EngineFuture:
         """Per-fragment checks: ids [F, 2], mu [F, sectors], sigma
         [F, limbs] -> future of bool [F]. Coalesces along F across
         requests of the same round."""
@@ -360,17 +463,20 @@ class SubmissionEngine:
         return self._submit("verify", key, ids.shape[0],
                             {"ids": ids, "mu": mu, "sigma": sigma},
                             {"idx": idx, "nu": nu,
-                             "num_blocks": int(num_blocks)}, timeout)
+                             "num_blocks": int(num_blocks)}, timeout,
+                            tenant=tenant)
 
     def verify_batch(self, fragment_ids, num_blocks, idx, nu, mu, sigma,
-                     timeout: float | None = None):
-        return self.submit_verify_batch(fragment_ids, num_blocks, idx, nu,
-                                        mu, sigma, timeout=timeout).result()
+                     timeout: float | None = None,
+                     tenant: str | None = None):
+        return self._blocking("verify", self.submit_verify_batch,
+                              fragment_ids, num_blocks, idx, nu, mu, sigma,
+                              timeout=timeout, tenant=tenant)
 
     def submit_verify_aggregate(self, fragment_ids, num_blocks, idx, nu,
                                 r, mu, sigma,
-                                timeout: float | None = None
-                                ) -> EngineFuture:
+                                timeout: float | None = None,
+                                tenant: str | None = None) -> EngineFuture:
         """One aggregated-proof check (the TEE's per-mission verify):
         ids [F, 2], r [F], mu [sectors], sigma [limbs] -> future of
         bool. Missions of the same round coalesce: each owed set is
@@ -393,13 +499,16 @@ class SubmissionEngine:
                             {"ids": ids, "r": r_arr, "mu": mu,
                              "sigma": sigma},
                             {"idx": idx, "nu": nu,
-                             "num_blocks": int(num_blocks)}, timeout)
+                             "num_blocks": int(num_blocks)}, timeout,
+                            tenant=tenant)
 
     def verify_aggregate(self, fragment_ids, num_blocks, idx, nu, r, mu,
-                         sigma, timeout: float | None = None) -> bool:
-        return bool(self.submit_verify_aggregate(
-            fragment_ids, num_blocks, idx, nu, r, mu, sigma,
-            timeout=timeout).result())
+                         sigma, timeout: float | None = None,
+                         tenant: str | None = None) -> bool:
+        return bool(self._blocking(
+            "verify", self.submit_verify_aggregate, fragment_ids,
+            num_blocks, idx, nu, r, mu, sigma, timeout=timeout,
+            tenant=tenant))
 
     # ------------------------------------------------------------------
     # lifecycle / introspection
@@ -530,6 +639,7 @@ class SubmissionEngine:
                         self.stats.classes[cls].failed += 1
                         r.future._reject(EngineClosed(
                             "engine shut down before this request ran"))
+                        r.span.set(outcome="closed").finish()
 
     # ------------------------------------------------------------------
     # internals
@@ -541,6 +651,29 @@ class SubmissionEngine:
     def _need_audit(self) -> None:
         if self.audit is None:
             raise ValueError("engine has no AuditBackend configured")
+
+    def _blocking(self, cls: str, submit, *args,
+                  timeout: float | None = None, tenant: str | None = None):
+        """The blocking form behind encode()/tag_fragments()/...: without
+        resilience submit().result() verbatim. With it, EngineSaturated
+        submits retry under the configured backoff inside ONE deadline
+        budget: every attempt's queue deadline and wait are the budget's
+        REMAINING time, so retrying never extends the caller's
+        deadline."""
+        res = self.resilience
+        if res is None:
+            return submit(*args, timeout=timeout, tenant=tenant).result()
+        if timeout is None:
+            timeout = self.policy.default_timeout
+        budget = Budget(timeout)
+
+        def attempt(b):
+            left = b.remaining()
+            return submit(*args, timeout=left, tenant=tenant).result(left)
+
+        return res.retry.call(attempt, retry_on=(EngineSaturated,),
+                              budget=budget, token=cls, stats=res.stats,
+                              cls=cls)
 
     @staticmethod
     def _norm_shards(data, rows: int):
@@ -557,9 +690,15 @@ class SubmissionEngine:
         return torch.cuda.device(self.device) \
             if self.device.type == "cuda" else contextlib.nullcontext()
 
+    def _tracer_now(self):
+        """The engine's own tracer, else the process-armed one, else
+        None (every span hook then touches the no-op singleton)."""
+        return self.tracer if self.tracer is not None \
+            else trace.armed_tracer()
+
     def _submit(self, cls: str, key: tuple, rows: int, arrays: dict,
-                aux: dict, timeout: float | None,
-                squeeze: bool = False) -> EngineFuture:
+                aux: dict, timeout: float | None, squeeze: bool = False,
+                tenant: str | None = None) -> EngineFuture:
         if rows < 1:
             raise ValueError(f"empty {cls} request (0 rows)")
         now = time.monotonic()
@@ -579,17 +718,34 @@ class SubmissionEngine:
                        deadline=None if timeout is None else now + timeout,
                        future=fut, squeeze=squeeze, device=bool(tensors),
                        ready=ready)
+        tracer = self._tracer_now()
+        if tracer is not None:
+            # finished when the request resolves, fails, expires or is
+            # refused, on whichever thread that happens
+            req.span = tracer.start(f"engine.{cls}", sys="engine", cls=cls,
+                                    rows=rows, op=key[0])
+            if tenant is not None:
+                req.span.set(tenant=tenant)
+        saturated = False
         with self._cond:
             if self._closed:
+                req.span.set(outcome="closed").finish()
                 raise EngineClosed("engine is shut down")
             st = self.stats.classes[cls]
             if len(self._queues[cls]) >= self.policy.queue_cap:
                 st.saturated += 1
-                raise EngineSaturated(
-                    f"{cls} queue full ({self.policy.queue_cap})")
-            st.submitted += 1
-            self._queues[cls].append(req)
-            self._cond.notify_all()
+                saturated = True
+            else:
+                st.submitted += 1
+                self._queues[cls].append(req)
+                self._cond.notify_all()
+        if saturated:
+            # span and journal outside the engine lock: journal
+            # listeners may read engine snapshots
+            req.span.set(outcome="saturated").finish()
+            _flight.note("engine", "saturated", cls=cls)
+            raise EngineSaturated(
+                f"{cls} queue full ({self.policy.queue_cap})")
         return fut
 
     # -- batcher thread -------------------------------------------------
@@ -613,6 +769,11 @@ class SubmissionEngine:
                     if batch:
                         with self._device_mu:
                             self._run_batch(batch)
+                except BaseException as e:
+                    # member failures are settled inside _run_batch; an
+                    # error escaping it kills the batcher: journal it
+                    _flight.note("engine", "escape", error=repr(e))
+                    raise
                 finally:
                     with self._cond:
                         self._inflight -= 1
@@ -636,6 +797,7 @@ class SubmissionEngine:
                     r.future._reject(EngineTimeout(
                         f"{cls} request deadline expired before "
                         "batching"))
+                    r.span.set(outcome="timeout").finish()
                 else:
                     keep.append(r)
             q.clear()
@@ -710,29 +872,175 @@ class SubmissionEngine:
         q.extend(rest)
         return batch
 
+    def _device_annotation(self, tracer, op: str):
+        """With ``device_annotations`` on, a batch dispatch runs inside
+        ``torch.profiler.record_function("cess:<op>")``, so a profiler
+        trace lines up with the framework's spans."""
+        if tracer is None or not tracer.device_annotations:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"cess:{op}")
+
+    def _wait_ready(self, batch: list[_Request]) -> None:
+        """The batch's stream waits on each CUDA member's submit event."""
+        events = [r.ready for r in batch if r.ready is not None]
+        if events:
+            stream = torch.cuda.current_stream(self.device)
+            for e in events:
+                stream.wait_event(e)
+
     def _run_batch(self, batch: list[_Request]) -> None:
-        """Run one coalesced batch; an op failure rejects every member's
-        future with the op's error."""
+        """Run one coalesced batch. Without resilience an op failure
+        rejects every member's future with the op's error; with it the
+        batch is gated by its backend's breaker (an open one serves its
+        host members on the CPU reference and refuses its card members)
+        and a failure is salvaged member by member (``_salvage_batch``). A ``KernelBuildError`` is never salvaged,
+        degraded or counted against the breaker."""
         cls = batch[0].cls
-        runner = getattr(self, f"_op_{batch[0].key[0]}")
+        op = batch[0].key[0]
+        runner = getattr(self, f"_op_{op}")
+        res = self.resilience
+        mon = self.monitors.get(self._BACKEND_OF[op])
+        degraded = res is not None and res.fallback and mon is not None \
+            and not mon.allow()
+        if degraded:
+            batch = self._refuse_card_members(batch, EngineUnavailable(
+                f"{self._BACKEND_OF[op]} breaker open: a payload on the "
+                "card is not served on the host"))
+            if not batch:
+                return
+            res.stats.note_degraded(cls)
+        backend = "cpu-fallback" if degraded else "primary"
+        tracer = self._tracer_now()
+        bspan = trace.NOOP_SPAN
+        if tracer is not None:
+            bspan = tracer.start(
+                "engine.batch", sys="engine", parent=batch[0].span, op=op,
+                cls=cls, members=len(batch), rows=sum(r.rows for r in batch),
+                degraded=degraded, backend=backend)
+            for r in batch:
+                r.span.event("batched", batch_span=bspan.span_id,
+                             members=len(batch))
+        t0 = time.monotonic()
         try:
-            if self.device.type == "cuda":
-                stream = torch.cuda.current_stream(self.device)
-                for r in batch:
-                    if r.ready is not None:
-                        stream.wait_event(r.ready)
-            results, device_rows = runner(batch)
+            # current=True: the device span is the batcher's active span
+            # for the dispatch, so fault firings annotate it
+            with self._device_annotation(tracer, op), \
+                    (trace.NOOP_SPAN if tracer is None else tracer.start(
+                        f"device.{op}", sys="device", parent=bspan,
+                        current=True, op=op, degraded=degraded,
+                        backend=backend)):
+                if not degraded:
+                    faults.inject("engine.dispatch")   # chaos seam
+                self._wait_ready(batch)
+                # the runner is a monkeypatch seam: called with the
+                # batch alone on the primary path
+                results, device_rows = runner(batch, True) if degraded \
+                    else runner(batch)
         except Exception as e:        # op failure
+            build = isinstance(e, _build.KernelBuildError)
+            if mon is not None and not degraded and not build:
+                mon.record_error()
+            bspan.set(error=repr(e)).finish()
+            if res is not None and not build:
+                self._salvage_batch(runner, batch, e, mon, degraded)
+                return
             with self._lock:
                 self.stats.classes[cls].failed += len(batch)
             for r in batch:
                 r.future._reject(e)
+                r.span.set(outcome="error", error=repr(e)).finish()
             return
-        self._account_batch(batch, device_rows)
+        if mon is not None and not degraded:
+            mon.record_success(time.monotonic() - t0)
+        self._account_batch(batch, device_rows, bspan)
+        bspan.finish()
         for r, out in zip(batch, results):
             r.future._resolve(out)
+            if r.span is not trace.NOOP_SPAN:
+                r.span.set(outcome="ok").finish()
 
-    def _account_batch(self, batch: list[_Request], device_rows: int) -> None:
+    def _salvage_batch(self, runner, batch: list[_Request],
+                       primary_exc: BaseException, mon,
+                       degraded: bool) -> None:
+        """A batch failed with resilience configured: re-run each member
+        ALONE once (a poisoned request must not fail its batch-mates),
+        then, if its attempt on the card failed and fallback is allowed,
+        serve a host member on the CPU reference; a card member is
+        rejected with its attempt's error. Resolves or rejects every
+        future."""
+        res = self.resilience
+        cls = batch[0].cls
+        tracer = self._tracer_now()
+        if len(batch) > 1:
+            res.stats.note_batch_requeues(len(batch))
+        # solo re-runs use the card only while its breaker is closed (or
+        # the failed batch was degraded already): re-probing a device
+        # whose recovery probe just failed, once per member, would
+        # multiply the outage's latency by the batch size
+        solo = len(batch) > 1 \
+            and (degraded or mon is None or mon.state == "closed")
+        for r in batch:
+            out = None
+            exc = primary_exc
+            if solo:
+                r.span.event("salvage.solo")
+                try:
+                    if not degraded:
+                        faults.inject("engine.dispatch")
+                    self._wait_ready([r])
+                    out, rows = runner([r], True) if degraded \
+                        else runner([r])
+                except Exception as e:  # noqa: BLE001 (member isolation)
+                    exc = e
+                    if mon is not None and not degraded \
+                            and not isinstance(e, _build.KernelBuildError):
+                        mon.record_error()
+                else:
+                    if mon is not None and not degraded:
+                        mon.record_success(0.0)
+            if out is None and not degraded and res.fallback \
+                    and mon is not None and not self._on_card(r) \
+                    and not isinstance(exc, _build.KernelBuildError):
+                try:
+                    with (trace.NOOP_SPAN if tracer is None
+                          else tracer.start("resilience.fallback",
+                                            sys="resilience", parent=r.span,
+                                            current=True, cls=cls,
+                                            backend="cpu-fallback")):
+                        out, rows = runner([r], True)
+                    res.stats.note_fallback(cls)
+                except Exception as e:  # noqa: BLE001 (reported below)
+                    exc = e
+            if out is None:
+                with self._lock:
+                    self.stats.classes[cls].failed += 1
+                r.future._reject(exc)
+                r.span.set(outcome="error", error=repr(exc)).finish()
+            else:
+                self._account_batch([r], rows)
+                r.future._resolve(out[0])
+                r.span.set(outcome="ok").finish()
+
+    def _on_card(self, r: _Request) -> bool:
+        """A tensor member of an engine on the card: its payload and its
+        result live on the card, so its work never moves to the host."""
+        return r.device and self.device.type == "cuda"
+
+    def _refuse_card_members(self, batch: list[_Request],
+                             exc: BaseException) -> list[_Request]:
+        """Reject the card members of a batch bound for the CPU
+        references with ``exc``; return the host members."""
+        card = [r for r in batch if self._on_card(r)]
+        if card:
+            with self._lock:
+                self.stats.classes[batch[0].cls].failed += len(card)
+            for r in card:
+                r.future._reject(exc)
+                r.span.set(outcome="error", error=repr(exc)).finish()
+        return [r for r in batch if not self._on_card(r)]
+
+    def _account_batch(self, batch: list[_Request], device_rows: int,
+                       batch_span=trace.NOOP_SPAN) -> None:
         done = time.monotonic()
         real_rows = sum(r.rows for r in batch)
         with self._lock:
@@ -746,8 +1054,20 @@ class SubmissionEngine:
                 lat = done - r.enqueue_t
                 st.latencies.append(lat)
                 st.hist.observe(lat)
+        # span attributes only when the spans are real
+        if batch_span is not trace.NOOP_SPAN:
+            pad = max(device_rows - real_rows, 0)
+            pad_waste = round(pad / device_rows if device_rows else 0.0, 4)
+            batch_span.set(device_rows=device_rows, pad_waste=pad_waste)
+            for r in batch:
+                r.span.set(occupancy=len(batch), pad_waste=pad_waste,
+                           batch_span=batch_span.span_id,
+                           latency_s=round(done - r.enqueue_t, 6))
 
     # -- op runners (batcher thread only) -------------------------------
+    # Each runs ``(batch, degraded=False)``; a degraded batch assembles
+    # its inputs on the host and runs the CPU reference backends.
+
     def _sync(self) -> None:
         """Wait for the work enqueued so far on the batch's stream."""
         if self.device.type == "cuda":
@@ -755,18 +1075,35 @@ class SubmissionEngine:
             done.record(torch.cuda.current_stream(self.device))
             done.synchronize()
 
-    def _rows(self, arrs: list, rows: int, dtype) -> torch.Tensor:
+    def _batch_device(self, degraded: bool) -> torch.device:
+        return torch.device("cpu") if degraded else self.device
+
+    def _rs_backend(self, degraded: bool):
+        return self._fallback_codec if degraded else self.codec
+
+    def _audit_backend(self, degraded: bool):
+        return self._fallback_audit if degraded else self.audit
+
+    @staticmethod
+    def _key(key: tuple, degraded: bool) -> tuple:
+        """Degraded programs cache under their own keys: a breaker flip
+        never hands a card program (a CUDA graph replay from
+        ``warm_repair``) a host batch, nor a host program a card one."""
+        return key + ("cpu-fallback",) if degraded else key
+
+    def _rows(self, arrs: list, rows: int, dtype,
+              dev: torch.device) -> torch.Tensor:
         """Coalesce payloads along axis 0 into a [rows, ...] tensor on
-        the engine's device, zero-padded: one copy for each member (from
-        the host for numpy members); a lone tensor member that already
-        fills the bucket on the device is used as it lies."""
+        ``dev``, zero-padded: one copy for each member; a lone tensor
+        member that already fills the bucket on ``dev`` is used as it
+        lies."""
         first = arrs[0]
         if len(arrs) == 1 and isinstance(first, torch.Tensor) \
-                and first.shape[0] == rows and first.device == self.device \
+                and first.shape[0] == rows and first.device == dev \
                 and first.dtype == dtype:
             return first.contiguous()
         out = torch.empty((rows,) + tuple(first.shape[1:]), dtype=dtype,
-                          device=self.device)
+                          device=dev)
         off = 0
         for a in arrs:
             out[off:off + a.shape[0]].copy_(torch.as_tensor(a))
@@ -775,33 +1112,38 @@ class SubmissionEngine:
             out[off:].zero_()
         return out
 
-    def _stacked(self, arrs: list, rb: int, fb: int, dtype) -> torch.Tensor:
+    def _stacked(self, arrs: list, rb: int, fb: int, dtype,
+                 dev: torch.device) -> torch.Tensor:
         """Stack per-request [F_i, ...] payloads into a zero-padded
-        [rb, fb, ...] tensor on the engine's device."""
+        [rb, fb, ...] tensor on ``dev``."""
         first = arrs[0]
         out = torch.zeros((rb, fb) + tuple(first.shape[1:]), dtype=dtype,
-                          device=self.device)
+                          device=dev)
         for i, a in enumerate(arrs):
             out[i, :a.shape[0]].copy_(torch.as_tensor(a))
         return out
 
-    def _split_rows(self, batch: list[_Request], out: torch.Tensor) -> list:
-        """Slice a batch result back per request: tensor submitters get
-        views of the device result, host submitters numpy (an all-host
-        batch is fetched once). Synchronized before any future
-        resolves (module docstring)."""
-        self._sync()
-        host = None
-        if not any(r.device for r in batch):
-            host = out.cpu().numpy()
+    def _as_member(self, r: _Request, piece):
+        """A result piece in the member's domain: a tensor on the
+        engine's device for a tensor member, numpy for a numpy one."""
+        if r.device:
+            return torch.as_tensor(piece).to(self.device)
+        if isinstance(piece, torch.Tensor):
+            return piece.cpu().numpy()
+        return piece
+
+    def _split_rows(self, batch: list[_Request], out) -> list:
+        """Slice a batch result (a tensor, or numpy from a host
+        reference) back per request in each member's domain; an
+        all-host batch is fetched once. A result on the card is
+        synchronized before any future resolves (module docstring)."""
+        if isinstance(out, torch.Tensor) and out.is_cuda:
+            self._sync()
+            if not any(r.device for r in batch):
+                out = out.cpu().numpy()
         results, off = [], 0
         for r in batch:
-            if r.device:
-                piece = out[off:off + r.rows]
-            elif host is not None:
-                piece = host[off:off + r.rows]
-            else:
-                piece = out[off:off + r.rows].cpu().numpy()
+            piece = self._as_member(r, out[off:off + r.rows])
             results.append(piece[0] if r.squeeze else piece)
             off += r.rows
         return results
@@ -811,123 +1153,137 @@ class SubmissionEngine:
         """Cost-model components of a program-cache key: codecs under
         strategy "xor"/"auto" report which lowering serves this (kind,
         pattern, shape) and the estimate that picked it; dense codecs
-        give ()."""
+        and the host references give ()."""
         meta = getattr(codec, "program_meta", None)
         if meta is None:
             return ()
         return meta(kind, present=present, missing=missing, shape=shape)
 
-    def _op_encode(self, batch):
-        codec = self.codec
+    def _op_encode(self, batch, degraded=False):
+        codec = self._rs_backend(degraded)
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
         data = self._rows([r.arrays["data"] for r in batch], bucket,
-                          torch.uint8)
+                          torch.uint8, self._batch_device(degraded))
         _, k, n = data.shape
         meta = self._codec_meta(codec, "encode", shape=(bucket, k, n))
-        prog = self.programs.get(("encode", k, n, bucket) + meta,
-                                 lambda: codec.encode)
+        prog = self.programs.get(
+            self._key(("encode", k, n, bucket), degraded) + meta,
+            lambda: codec.encode)
         out = prog(data)[:total]
         return self._split_rows(batch, out), bucket
 
-    def _op_repair(self, batch):
-        codec = self.codec
+    def _op_repair(self, batch, degraded=False):
+        codec = self._rs_backend(degraded)
         kind = batch[0].key[1]
         aux = batch[0].aux
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
         surv = self._rows([r.arrays["survivors"] for r in batch], bucket,
-                          torch.uint8)
+                          torch.uint8, self._batch_device(degraded))
         n = surv.shape[2]
         if kind == "reconstruct":
             present, missing = aux["present"], aux["missing"]
             meta = self._codec_meta(codec, "repair", present, missing,
                                     (bucket, len(present), n))
             prog = self.programs.get(
-                ("repair", present, missing, n, bucket) + meta,
+                self._key(("repair", present, missing, n, bucket),
+                          degraded) + meta,
                 lambda: (lambda a: codec.reconstruct(a, present, missing)))
         elif kind == "symbol":
             coeff = aux["coeff"]
             meta = self._codec_meta(codec, "symbol", (coeff,), (),
                                     (bucket, 2, n))
             prog = self.programs.get(
-                ("symbol", coeff, n, bucket) + meta,
+                self._key(("symbol", coeff, n, bucket), degraded) + meta,
                 lambda: (lambda a: codec.fold_symbol(a, coeff)))
         else:
             present = aux["present"]
             meta = self._codec_meta(codec, "decode", present, (),
                                     (bucket, len(present), n))
             prog = self.programs.get(
-                ("decode", present, n, bucket) + meta,
+                self._key(("decode", present, n, bucket), degraded) + meta,
                 lambda: (lambda a: codec.decode_data(a, present)))
         out = prog(surv)[:total]
         return self._split_rows(batch, out), bucket
 
-    def _op_tag(self, batch):
-        audit = self.audit
+    def _op_tag(self, batch, degraded=False):
+        audit = self._audit_backend(degraded)
+        dev = self._batch_device(degraded)
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
         ids = self._rows([r.arrays["ids"] for r in batch], bucket,
-                         torch.int64)
+                         torch.int64, dev)
         frags = self._rows([r.arrays["fragments"] for r in batch], bucket,
-                           torch.uint8)
-        prog = self.programs.get(("tag", frags.shape[1], bucket),
-                                 lambda: audit.tag_fragments)
+                           torch.uint8, dev)
+        prog = self.programs.get(
+            self._key(("tag", frags.shape[1], bucket), degraded),
+            lambda: audit.tag_fragments)
         out = prog(ids, frags)[:total]
         return self._split_rows(batch, out), bucket
 
-    def _round_tensors(self, aux: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        return (torch.as_tensor(aux["idx"]).to(self.device),
-                torch.as_tensor(aux["nu"]).to(self.device))
+    @staticmethod
+    def _round_tensors(aux: dict, dev) -> tuple[torch.Tensor, torch.Tensor]:
+        return (torch.as_tensor(aux["idx"]).to(dev),
+                torch.as_tensor(aux["nu"]).to(dev))
 
-    def _op_verify_batch(self, batch):
-        audit = self.audit
+    def _op_verify_batch(self, batch, degraded=False):
+        audit = self._audit_backend(degraded)
+        dev = self._batch_device(degraded)
         aux = batch[0].aux
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
         ids = self._rows([r.arrays["ids"] for r in batch], bucket,
-                         torch.int64)
-        mu = self._rows([r.arrays["mu"] for r in batch], bucket, torch.int64)
+                         torch.int64, dev)
+        mu = self._rows([r.arrays["mu"] for r in batch], bucket, torch.int64,
+                        dev)
         sigma = self._rows([r.arrays["sigma"] for r in batch], bucket,
-                           torch.int64)
+                           torch.int64, dev)
 
         def build():
-            idx, nu = self._round_tensors(aux)
+            idx, nu = self._round_tensors(aux, dev)
             num_blocks = aux["num_blocks"]
             return lambda i, u, s: audit.verify_batch(i, num_blocks, idx,
                                                       nu, u, s)
 
-        prog = self.programs.get(("verify_batch", batch[0].key, bucket),
-                                 build)
+        prog = self.programs.get(
+            self._key(("verify_batch", batch[0].key, bucket), degraded),
+            build)
         out = prog(ids, mu, sigma)[:total]
         return self._split_rows(batch, out), bucket
 
-    def _op_verify_agg(self, batch):
-        audit = self.audit
+    # The stacked classes call ``podr2`` itself with a leading mission
+    # axis, as the TPU engine's stacked runners do: they cross no
+    # ``podr2.<op>`` fault site of the gate, only ``engine.dispatch``.
+
+    def _op_verify_agg(self, batch, degraded=False):
+        audit = self._audit_backend(degraded)
+        dev = self._batch_device(degraded)
         aux = batch[0].aux
         fb = bucket_rows(max(r.rows for r in batch))
         rb = bucket_rows(len(batch))
         ids = self._stacked([r.arrays["ids"] for r in batch], rb, fb,
-                            torch.int64)
+                            torch.int64, dev)
         rs_ = self._stacked([r.arrays["r"] for r in batch], rb, fb,
-                            torch.int64)
+                            torch.int64, dev)
         mu = self._rows([r.arrays["mu"][None] for r in batch], rb,
-                        torch.int64)
+                        torch.int64, dev)
         sigma = self._rows([r.arrays["sigma"][None] for r in batch], rb,
-                           torch.int64)
+                           torch.int64, dev)
 
         def build():
-            idx, nu = self._round_tensors(aux)
+            idx, nu = self._round_tensors(aux, dev)
             num_blocks = aux["num_blocks"]
-            return lambda i, rr, u, s: audit.verify_aggregate(
-                i, num_blocks, idx, nu, rr, u, s)
+            return lambda i, rr, u, s: podr2.verify_aggregate(
+                audit.key, i, num_blocks, idx, nu, rr, u, s)
 
-        prog = self.programs.get(("verify_agg", batch[0].key, fb, rb), build)
+        prog = self.programs.get(
+            self._key(("verify_agg", batch[0].key, fb, rb), degraded), build)
         ok = prog(ids, rs_, mu, sigma).cpu()
         return [bool(ok[i]) for i in range(len(batch))], rb * fb
 
-    def _op_prove(self, batch):
-        audit = self.audit
+    def _op_prove(self, batch, degraded=False):
+        dev = self._batch_device(degraded)
         aux = batch[0].aux
         fb = bucket_rows(max(r.rows for r in batch))
         rb = bucket_rows(len(batch))
@@ -936,30 +1292,33 @@ class SubmissionEngine:
         blocks = batch[0].arrays["tags"].shape[1]
         # only the challenged blocks are read: gather them per mission
         # (on the host for numpy missions, on the device for tensors)
-        # and stack [R, F_bucket, c * lanes] on the device
+        # and stack [R, F_bucket, c * lanes] on the batch's device
         sel = self._stacked(
             [_take_blocks(r.arrays["fragments"].reshape(r.rows, blocks,
                                                         lanes), idx
                           ).reshape(r.rows, -1)
-             for r in batch], rb, fb, torch.uint8)
+             for r in batch], rb, fb, torch.uint8, dev)
         tsel = self._stacked([_take_blocks(r.arrays["tags"], idx)
-                              for r in batch], rb, fb, torch.int64)
+                              for r in batch], rb, fb, torch.int64, dev)
         rs_ = self._stacked([r.arrays["r"] for r in batch], rb, fb,
-                            torch.int64)
+                            torch.int64, dev)
 
         def build():
-            _, nu = self._round_tensors(aux)
-            return lambda f, t, rr: audit.prove_aggregate(f, t, None, nu, rr,
+            _, nu = self._round_tensors(aux, dev)
+            return lambda f, t, rr: podr2.prove_aggregate(f, t, None, nu, rr,
                                                           sectors)
 
-        prog = self.programs.get(("prove", batch[0].key, fb, rb), build)
+        prog = self.programs.get(
+            self._key(("prove", batch[0].key, fb, rb), degraded), build)
         mu, sigma = prog(sel, tsel, rs_)
-        self._sync()
+        if mu.is_cuda:
+            self._sync()
         host = None
         results = []
         for i, r in enumerate(batch):
             if r.device:
-                results.append((mu[i], sigma[i]))
+                results.append((self._as_member(r, mu[i]),
+                                self._as_member(r, sigma[i])))
                 continue
             if host is None:
                 host = (mu.cpu().numpy(), sigma.cpu().numpy())
@@ -970,7 +1329,8 @@ class SubmissionEngine:
 def make_engine(k: int | None = None, m: int | None = None, *,
                 rs_backend: str | None = None, strategy: str | None = None,
                 podr2_key=None, audit_backend: str | None = None,
-                policy: AdmissionPolicy | None = None) -> SubmissionEngine:
+                policy: AdmissionPolicy | None = None, resilience=None,
+                tracer=None) -> SubmissionEngine:
     """Build an engine over the two gates.
 
     k/m select the ErasureCodec geometry (None: no codec, the engine
@@ -982,6 +1342,11 @@ def make_engine(k: int | None = None, m: int | None = None, *,
     purpose from the TPU package, whose ``make_engine`` defaults to its
     CPU reference: an entry point of the port runs on the card unless
     asked for the CPU. strategy: the codec's GF lowering.
+    resilience: an optional ``resilience.ResilienceConfig`` (retry on
+    saturation, member isolation, breaker-gated CPU degradation; the
+    module doc's Resilience paragraph). tracer: an optional
+    ``obs.trace.Tracer`` for request, batch and device spans; without
+    one the engine still honours a process-armed tracer.
     """
     codec = None
     if k is not None:
@@ -989,4 +1354,5 @@ def make_engine(k: int | None = None, m: int | None = None, *,
     audit = None
     if podr2_key is not None:
         audit = ab.make_audit_backend(podr2_key, audit_backend)
-    return SubmissionEngine(codec, audit, policy)
+    return SubmissionEngine(codec, audit, policy, resilience=resilience,
+                            tracer=tracer)

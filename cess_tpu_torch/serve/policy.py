@@ -44,6 +44,13 @@ class EngineShed(EngineError):
     that callers can name the full set of engine errors."""
 
 
+class EngineUnavailable(EngineError):
+    """The request's backend is degraded (its breaker is open) and its
+    payload lies on the card. The engine serves only host members on
+    the CPU references: a card member is refused, never copied to the
+    host and computed there."""
+
+
 class EngineClosed(EngineError):
     """Submit against an engine that has been shut down."""
 

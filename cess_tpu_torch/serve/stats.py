@@ -1,10 +1,11 @@
 """Engine counters: queue depth, batch occupancy, pad waste, latency.
 
 The port's copy of ``cess_tpu/serve/stats.py`` under the same
-``cess_engine_*`` names, without the attachments of the planes the port
-does not have yet (resilience, SLO, adaptive control, device pool,
-profiling) and without the ``shed`` counter that only SLO-gated
-admission increments.
+``cess_engine_*`` names, with the resilience attachment (its snapshot
+under ``"resilience"``, its ``cess_resilience_*`` gauges merged into the
+metrics) and without the attachments of the planes the port does not
+have yet (SLO, adaptive control, device pool, profiling) or the
+``shed`` counter that only SLO-gated admission increments.
 
 Everything here is updated under the engine lock (the batcher and the
 submitters hold it at every recording site), so the counters need no
@@ -121,6 +122,9 @@ class EngineStats:
         self.programs_built = 0     # program-cache misses
         self.programs_reused = 0    # program-cache hits
         self.streams: list[StreamStats] = []   # attached streaming ingests
+        # the engine's resilience.ResilienceStats when it has a
+        # ResilienceConfig: duck-typed (snapshot()/metrics())
+        self.resilience = None
 
     def snapshot(self, queue_depths: dict[str, int] | None = None) -> dict:
         """JSON-shaped dump."""
@@ -144,6 +148,8 @@ class EngineStats:
             }
         if self.streams:
             out["streams"] = [s.snapshot() for s in self.streams]
+        if self.resilience is not None:
+            out["resilience"] = self.resilience.snapshot()
         return out
 
     def metrics(self, queue_depths: dict[str, int] | None = None
@@ -164,6 +170,8 @@ class EngineStats:
                     totals[k] += v
             for name, val in stream_gauges(totals).items():
                 out[f"cess_engine_stream_{name}"] = float(val)
+        if self.resilience is not None:
+            out.update(self.resilience.metrics())
         return out
 
     def histograms(self) -> dict[str, prom.Histogram]:

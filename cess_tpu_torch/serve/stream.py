@@ -30,7 +30,14 @@ program (``StoragePipeline.fused_program``) over host segments:
 - default ids are the arange over the GLOBAL row index, exactly the
   direct path's default over the whole array;
 - every stage is counted in :class:`~.stats.StreamStats` and exported
-  through an attached engine's ``cess_engine_stream_*`` metrics.
+  through an attached engine's ``cess_engine_stream_*`` metrics;
+- the TPU package's seams: a ``stream.run`` span over the run and a
+  ``stream.batch`` span a batch (``obs/trace.py``, on the attached
+  engine's tracer or the armed one), and the fault sites ``stream.h2d``
+  (before a batch is staged) and ``stream.dispatch`` (before its program
+  is launched); a staging or launch failure finishes its batch span
+  with the error, notes ``stream``/``escape`` in the flight journal and
+  surfaces to the consumer.
 
 On the CPU the program runs on the host tensors as they are: no pinned
 buffer, no side stream, no copy. Results equal the direct per-step
@@ -45,6 +52,9 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..obs import flight as _flight
+from ..obs import trace
+from ..resilience import faults
 from .stats import StreamStats
 
 
@@ -89,6 +99,15 @@ def _rebatch(source, batch: int) -> Iterator:
             else pending[0]
 
 
+def _pad_host(chunk: torch.Tensor, rows: int) -> torch.Tensor:
+    """A host chunk as a contiguous [rows, ...] tensor, zero rows added."""
+    chunk = chunk.contiguous()
+    if chunk.shape[0] == rows:
+        return chunk
+    return torch.cat([chunk, chunk.new_zeros(
+        (rows - chunk.shape[0],) + tuple(chunk.shape[1:]))])
+
+
 def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
     if a.shape[0] == rows:
         return a
@@ -107,10 +126,12 @@ class StreamingIngest:
               beside the previous batch's kernels).
     stats:    a StreamStats to count into (default: a new one).
     engine:   optional SubmissionEngine to export stats through.
+    tenant:   the TPU package's per-tenant accounting tag; accepted and
+              ignored until the port has an SLO board.
     """
 
     def __init__(self, pipeline, batch: int, *, depth: int = 2,
-                 stats=None, engine=None):
+                 stats=None, engine=None, tenant: str | None = None):
         if batch < 1 or depth < 1:
             raise ValueError(f"bad stream shape: batch={batch}, "
                              f"depth={depth}")
@@ -164,6 +185,13 @@ class StreamingIngest:
                 raise ValueError("fragment_ids rows != segments rows")
         return self._run(segments, fragment_ids)
 
+    def _tracer_now(self):
+        """Tracer serving this run: the attached engine's own, else the
+        process-armed tracer, else None."""
+        if self._engine is not None and self._engine.tracer is not None:
+            return self._engine.tracer
+        return trace.armed_tracer()
+
     def _staging(self, dev: torch.device, seg: int):
         """The ``depth`` device buffers and the copy stream, made at
         first use on the card and kept."""
@@ -174,7 +202,6 @@ class StreamingIngest:
                            for _ in range(self.depth)]
             self._pinned = [None] * self.depth
             self._copy_stream = torch.cuda.Stream(dev)
-        return self._slots, self._copy_stream
 
     def _pinned_slot(self, slot: int) -> torch.Tensor:
         """Slot ``slot``'s pinned host buffer, made when the first chunk
@@ -184,6 +211,28 @@ class StreamingIngest:
                                              dtype=torch.uint8,
                                              pin_memory=True)
         return self._pinned[slot]
+
+    def _stage(self, chunk: torch.Tensor, n: int, real: int) -> torch.Tensor:
+        """Batch ``n``'s rows in its slot's device buffer: pinned rows go
+        over the bus as they lie, others through the slot's pinned
+        buffer; the copy runs on the side stream and the compute stream
+        waits on its event."""
+        slot = n % self.depth
+        staged = self._slots[slot]
+        src = chunk
+        if not chunk.is_pinned():
+            src = self._pinned_slot(slot)[:real]
+            src.copy_(chunk)
+        with torch.cuda.stream(self._copy_stream):
+            # only the real rows cross the bus; the ragged tail's pad
+            # rows are zeroed on the card
+            staged[:real].copy_(src, non_blocking=True)
+            if real < self.batch:
+                staged[real:].zero_()
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+        torch.cuda.current_stream(staged.device).wait_event(copied)
+        return staged
 
     def _run(self, segments, fragment_ids) -> Iterator[dict]:
         pipe = self.pipeline
@@ -195,23 +244,34 @@ class StreamingIngest:
         st = self.stats
         t_run = time.perf_counter()
         inflight: collections.deque = collections.deque()
+        run_span = trace.NOOP_SPAN
+        batches = stalls = 0
         if cuda:
-            slots, copy_stream = self._staging(dev, cfg.segment_size)
+            self._staging(dev, cfg.segment_size)
             compute = torch.cuda.current_stream(dev)
 
         def drain_one():
+            nonlocal stalls
             out, real, done = inflight.popleft()
             t0 = time.perf_counter()
             if done is not None:
                 done.synchronize()
-            st.stall_s += time.perf_counter() - t0
+            stall = time.perf_counter() - t0
+            st.stall_s += stall
+            stalls += 1
+            if run_span is not trace.NOOP_SPAN:
+                run_span.event("stall", s=round(stall, 6))
             if real < self.batch:
                 out = {k: v[:real] for k, v in out.items()}
             out["rows"] = real
             return out
 
         try:
-            seg_off = n_batches = 0
+            tracer = self._tracer_now()
+            if tracer is not None:
+                run_span = tracer.start("stream.run", sys="stream",
+                                        batch=self.batch, depth=self.depth)
+            seg_off = 0
             for chunk in _rebatch(segments, self.batch):
                 # enforce the in-flight window BEFORE staging the next
                 # batch: at most ``depth`` batches are ever enqueued
@@ -221,8 +281,8 @@ class StreamingIngest:
                 if chunk.dtype != torch.uint8:
                     chunk = chunk.to(torch.uint8)
                 real = chunk.shape[0]
-                if real < self.batch:
-                    st.padded_segments += self.batch - real
+                pad = self.batch - real
+                st.padded_segments += pad
                 if fragment_ids is None:
                     ids = torch.arange(seg_off * rows,
                                        (seg_off + self.batch) * rows,
@@ -231,42 +291,37 @@ class StreamingIngest:
                     ids = torch.as_tensor(_pad_rows(
                         fragment_ids[seg_off:seg_off + real],
                         self.batch)).to(dev)
-                t0 = time.perf_counter()
-                done = None
-                if cuda:
-                    slot = n_batches % self.depth
-                    staged = slots[slot]
-                    src = chunk
-                    if not chunk.is_pinned():
-                        src = self._pinned_slot(slot)[:real]
-                        src.copy_(chunk)
-                    with torch.cuda.stream(copy_stream):
-                        # only the real rows cross the bus; the ragged
-                        # tail's pad rows are zeroed on the card
-                        staged[:real].copy_(src, non_blocking=True)
-                        if real < self.batch:
-                            staged[real:].zero_()
-                        copied = torch.cuda.Event()
-                        copied.record(copy_stream)
-                    compute.wait_event(copied)
-                    seg_in = staged
-                else:
-                    seg_in = chunk.contiguous()
-                    if real < self.batch:
-                        seg_in = torch.cat([seg_in, seg_in.new_zeros(
-                            (self.batch - real,) + tuple(seg_in.shape[1:]))])
-                h2d = time.perf_counter() - t0
-                st.h2d_s += h2d
-                t0 = time.perf_counter()
-                out = program(seg_in, ids)
-                if cuda:
-                    done = torch.cuda.Event()
-                    done.record(compute)
+                bspan = trace.NOOP_SPAN if tracer is None \
+                    else tracer.start("stream.batch", sys="stream",
+                                      parent=run_span, rows=real, pad=pad)
+                try:
+                    t0 = time.perf_counter()
+                    faults.inject("stream.h2d")        # chaos seam: staging
+                    seg_in = self._stage(chunk, batches, real) if cuda \
+                        else _pad_host(chunk, self.batch)
+                    h2d = time.perf_counter() - t0
+                    st.h2d_s += h2d
+                    t0 = time.perf_counter()
+                    faults.inject("stream.dispatch")   # chaos seam: launch
+                    out = program(seg_in, ids)
+                    done = None
+                    if cuda:
+                        done = torch.cuda.Event()
+                        done.record(compute)
+                except BaseException as e:
+                    # the batch span lands in the ring with its error and
+                    # the journal notes the escape before it surfaces
+                    bspan.set(error=repr(e)).finish()
+                    _flight.note("stream", "escape", error=repr(e))
+                    raise
                 dispatch = time.perf_counter() - t0
                 st.dispatch_s += dispatch
                 st.hist.observe(h2d + dispatch)
+                if bspan is not trace.NOOP_SPAN:
+                    bspan.finish(h2d_s=round(h2d, 6),
+                                 dispatch_s=round(dispatch, 6))
                 st.batches += 1
-                n_batches += 1
+                batches += 1
                 st.segments += real
                 st.bytes_in += real * cfg.segment_size
                 seg_off += self.batch
@@ -275,6 +330,8 @@ class StreamingIngest:
                 yield drain_one()
         finally:
             st.wall_s += time.perf_counter() - t_run
+            if run_span is not trace.NOOP_SPAN:
+                run_span.finish(batches=batches, stalls=stalls)
 
     def ingest(self, segments, fragment_ids=None) -> dict:
         """Run the whole stream and concatenate the per-batch results:

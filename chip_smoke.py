@@ -41,9 +41,29 @@ limit):
    batch=32)`` at depth 2 and 1, every batch byte-equal to the direct
    forward, GiB/s from host bytes and the stage clocks beside a pinned
    ``copy_`` of the same bytes (the stream's bound);
-6. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+6. chaos: the engine with ``resilience`` and a tracer at the main
+   path's width (RS(2,1), 16 MiB segments, the chain's key), twice:
+   4 encodes of [2, 2, 8 MiB], 2 tags of 12 fragments, a proof and its
+   verification of numpy members, one at a time, under
+   ``FaultPlan.seeded(b"chip-chaos", ...)`` (``engine.dispatch``,
+   ``rs.encode``, ``podr2.tag.cuda``): every result byte-equal to the
+   fault-free path, each request's degradation, fallback and kernel
+   launches as the plan's crossings and firings say, both breakers
+   tripped, then probed closed by clean requests, after which the
+   kernels launch again; with the codec breaker held open a CUDA member
+   is refused (the engine never computes a payload on the card on the
+   host) and a numpy one is served; the firings equal across the two
+   runs; the Chrome trace's batch and device spans name their backend
+   and the flight recorder pinned an anomalous trace. Then
+   ``StreamingIngest`` over 8 pinned 16 MiB segments under a 10 ms
+   ``stream.h2d`` delay (byte-equal) and a ``stream.dispatch`` raise
+   (surfaces). After the launches are read, each kernel the engines ran
+   is held against its plain version at every shape in their program
+   caches. Every other phase builds its engines without
+   ``resilience``;
+7. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-7. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+8. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -51,10 +71,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-8. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+9. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-9. kernel times beside the plain versions' times and each kernel's
+10. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -65,7 +85,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-10. with ``--parent DIR`` (another checkout of the repository, e.g. the
+11. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -79,8 +99,9 @@ A kernel's ``ms`` is one wrapper call between two events, the median of
 wrapper in a CUDA graph and replays it.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
-entry's ``launches`` from the main path, ``launches_serve`` and
-``launches_stream`` from phases 4 and 5); the last
+entry's ``launches`` from the main path, ``launches_serve``,
+``launches_stream`` and ``launches_chaos`` from phases 4, 5 and 6); the
+last
 is ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
@@ -231,14 +252,16 @@ def class_line(snap: dict) -> str:
 
 
 def serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
-                        repairers: int, errs: dict) -> str:
+                        repairers: int, errs: dict, phase: str = "serve"
+                        ) -> str:
     """Each kernel the engine launched, at every bucket shape it ran: the
-    shapes come from the keys of the engine's program cache (``progs``),
-    the inputs are the phase's own, stacked and zero-padded as the engine
-    pads them (verify_agg: the 9 missions, thread 0's twice, each padded
-    to F_bucket). The kernel runs at the whole shape; its plain version
-    runs on slices of rows (every op keeps rows apart) and must give the
-    same bytes. Returns the shapes held."""
+    shapes come from the keys of the engine's program cache (``progs``;
+    the CPU references' ``cpu-fallback`` keys run no kernel and are
+    skipped), the inputs are the phase's own, stacked and zero-padded as
+    the engine pads them (verify_agg: ``ids[0]`` then each of ``ids`` as
+    a mission, each padded to F_bucket). The kernel runs at the whole
+    shape; its plain version runs on slices of rows (every op keeps rows
+    apart) and must give the same bytes. Returns the shapes held."""
     import torch
     from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, rs_kernel
 
@@ -257,7 +280,7 @@ def serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
         for s in range(0, got.shape[0], step):
             e = max_err(got[s:s + step], plain(s, s + step))
             errs[name] = max(errs[name], e)
-            check(e == 0, f"serve: {name} at {tuple(got.shape)} differs "
+            check(e == 0, f"{phase}: {name} at {tuple(got.shape)} differs "
                   f"from its plain version")
 
     def gf_at(mat, x):
@@ -272,6 +295,8 @@ def serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
     missions = [ids[0]] + list(ids)
     done = []
     for k in progs:
+        if "cpu-fallback" in k:
+            continue
         if k[0] == "encode":
             done.append(gf_at(gf.cauchy_parity_matrix(cfg.k, cfg.m),
                               padded(torch.cat(data), k[3])))
@@ -560,6 +585,299 @@ def stream_phase(pipe, dev, zero_counts, counts, tag: str) -> dict:
           f"bound: pinned copy_ of the same bytes {copy_ms:.3f} ms = "
           f"{copy_gibs:.3f} GiB/s ({nbytes / copy_ms / 1e6:.3f} GB/s); depth 2 "
           f"at {rate2 / copy_gibs:.1%} of the copy; launches {launches} {tag}")
+    return launches
+
+
+# the kernels each engine class launches on a batch that ran on the
+# card (prove runs plain tensor ops: it has none)
+CLASS_KERNELS = {"encode": ("gf_apply",), "tag": ("prf_blocks", "podr2_tag"),
+                 "prove": (), "verify": ("prf_blocks",)}
+CHAOS_SITES = {"engine.dispatch": (0.5, "raise"), "rs.encode": (0.4, "raise"),
+               "podr2.tag.cuda": (0.5, "raise")}
+
+
+def chaos_run(pipe, counts, want: dict) -> dict:
+    """One run of the chaos workload on a fresh engine with resilience,
+    a tracer and an attached, armed flight recorder, under
+    ``FaultPlan.seeded(b"chip-chaos", CHAOS_SITES, horizon=256)``.
+    Submits and waits one request at a time, so the replay is exact: 4
+    encodes of [2, 2, 8 MiB], 2 tags of 12 fragments, one aggregated
+    proof of the round and its verification, every member numpy (the
+    engine serves only host members on the CPU references). Each
+    request's degradation, fallback and kernel launches are read against
+    the plan's crossings and firings it caused. Then, unarmed, clean
+    requests until both breakers close, a last encode and tag on the
+    kernels, and, with the codec breaker held open, a CUDA member is
+    refused without a launch while a numpy one is served on the host.
+    Returns the run's record, with the program-cache keys the engine
+    ran."""
+    import numpy as np
+    import torch
+    from cess_tpu_torch.obs import flight, trace
+    from cess_tpu_torch.resilience import (FaultPlan, HealthMonitor,
+                                           ResilienceConfig, faults)
+    from cess_tpu_torch.serve import EngineUnavailable, make_engine
+
+    cfg = pipe.config
+    blocks = cfg.blocks_per_fragment
+    res = ResilienceConfig(monitor=lambda: HealthMonitor(min_samples=2,
+                                                         probe_every=2))
+    tracer = trace.Tracer(device_annotations=True)
+    rec = flight.FlightRecorder(b"chip-chaos")
+    tracer.attach_flight(rec)
+    eng = make_engine(cfg.k, cfg.m, podr2_key=pipe.podr2_key,
+                      resilience=res, tracer=tracer)
+    plan = FaultPlan.seeded(b"chip-chaos", CHAOS_SITES, horizon=256)
+    expect = {"degraded": {}, "fallback": {}}
+    outs = []
+    hd = want["host"]           # numpy copies of the direct path's arrays
+    ids, idx, nu, r = hd["ids"], hd["idx"], hd["nu"], hd["r"]
+
+    def request(cls, fn):
+        """Run one request; check what the plan says its batch did."""
+        crossed0 = plan.counts().get("engine.dispatch", 0)
+        fired0 = len(plan.fired_log())
+        launched0 = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        crossed = plan.counts().get("engine.dispatch", 0) - crossed0
+        fired = len(plan.fired_log()) - fired0
+        launched = {k: v - launched0[k] for k, v in counts().items()}
+        ran = []
+        if not crossed:                      # breaker open: host only
+            expect["degraded"][cls] = expect["degraded"].get(cls, 0) + 1
+        elif fired:                          # failed attempt: fallback
+            expect["fallback"][cls] = expect["fallback"].get(cls, 0) + 1
+        else:
+            ran = CLASS_KERNELS[cls]
+        check(all(launched[k] > 0 for k in ran)
+              and not any(launched[k] for k in launched if k not in ran),
+              f"chaos: {cls} launched {launched}, expected {ran} (crossed "
+              f"{crossed}, fired {fired})")
+        outs.append(out)
+        return out
+
+    try:
+        with flight.armed(rec), faults.armed(plan):
+            encs = [request("encode", lambda d=d: eng.encode(d))
+                    for d in hd["data"]]
+            frs = np.concatenate(encs).reshape(-1, cfg.fragment_size)
+            half = frs.shape[0] // 2
+            tags = np.concatenate([request(
+                "tag", lambda s=s: eng.tag_fragments(ids[s], frs[s]))
+                for s in (slice(0, half), slice(half, None))])
+            mu, sigma = request("prove", lambda: eng.prove_aggregate(
+                frs, tags, idx, nu, r))
+            ok = request("verify", lambda: eng.verify_aggregate(
+                ids, blocks, idx, nu, r, mu, sigma))
+        log = plan.fired_log()
+        chaos_snap = res.stats.snapshot()
+        check(all(isinstance(x, np.ndarray) for x in encs + [tags, mu, sigma])
+              and all(np.array_equal(a, b) for a, b in zip(encs, hd["enc"]))
+              and np.array_equal(tags, hd["tags"])
+              and np.array_equal(mu, hd["mu"])
+              and np.array_equal(sigma, hd["sigma"]) and ok is True,
+              "chaos: a result differs from the fault-free direct path")
+        check(log, "chaos: the plan never fired")
+        check(chaos_snap["degraded_batches"] == expect["degraded"]
+              and chaos_snap["fallback_batches"] == expect["fallback"]
+              and sum(expect["fallback"].values()) == len(log),
+              f"chaos: degradations {chaos_snap['degraded_batches']} / "
+              f"{chaos_snap['fallback_batches']} != the plan's {expect} "
+              f"({len(log)} firings)")
+        trips = {b: chaos_snap["breakers"][b]["trips"]
+                 for b in ("codec", "audit")}
+        check(all(trips.values()), f"chaos: a breaker never tripped: {trips}")
+        # unarmed: clean requests probe both breakers closed
+        for _ in range(8):
+            if eng.monitors["codec"].state != "closed":
+                check(np.array_equal(eng.encode(hd["data"][0]),
+                                     hd["enc"][0]), "chaos: clean encode")
+            if eng.monitors["audit"].state != "closed":
+                check(np.array_equal(eng.tag_fragments(ids[:half],
+                                                       frs[:half]),
+                                     hd["tags"][:half]), "chaos: clean tag")
+        snap = res.stats.snapshot()
+        check(all(snap["breakers"][b]["state"] == "closed"
+                  and snap["breakers"][b]["recoveries"] >= 1
+                  for b in ("codec", "audit")),
+              f"chaos: a breaker did not recover: {snap['breakers']}")
+        before = counts()
+        check(np.array_equal(eng.encode(hd["data"][1]), hd["enc"][1])
+              and np.array_equal(eng.tag_fragments(ids[half:], frs[half:]),
+                                 hd["tags"][half:]),
+              "chaos: a result after recovery differs")
+        torch.cuda.synchronize()
+        after = counts()
+        check(all(after[k] > before[k] for k in ("gf_apply", "prf_blocks",
+                                                 "podr2_tag")),
+              f"chaos: the kernels did not launch after recovery: "
+              f"{before} -> {after}")
+        # a payload on the card is never computed on the host
+        eng.monitors["codec"].hold_open("chip-smoke")
+        fut = eng.submit_encode(want["data"][2])
+        try:
+            fut.result(600)
+            refused = False
+        except EngineUnavailable:
+            refused = True
+        held_host = eng.encode(hd["data"][2])
+        eng.monitors["codec"].release()
+        torch.cuda.synchronize()
+        check(refused and counts() == after
+              and np.array_equal(held_host, hd["enc"][2]),
+              "chaos: with the codec breaker held open a CUDA member was "
+              "not refused, or a numpy member differs or launched a kernel")
+        progs = eng.programs.keys()
+    finally:
+        eng.close()
+    spans = tracer.export_chrome()["traceEvents"]
+    for name in ("engine.batch", "device.encode", "device.tag"):
+        check(any(e["name"] == name and "backend" in e["args"]
+                  for e in spans),
+              f"chaos: no {name} span with a backend in the trace")
+    check(any(e["args"].get("backend") == "cpu-fallback" for e in spans),
+          "chaos: no span says cpu-fallback")
+    check(rec.snapshot()["anomaly_pins"] >= 1,
+          "chaos: the flight recorder pinned no anomalous trace")
+    journal = [e["kind"] for e in rec.journal_tail("breaker")]
+    check("trip" in journal and "recover" in journal,
+          f"chaos: breaker journal {journal}")
+    # completed dispatches by op and backend, and the members a failed
+    # attempt sent to the CPU (their resilience.fallback spans)
+    device_ms = {}
+    for e in spans:
+        if e["name"].startswith("device.") and "error" not in e["args"]:
+            key = (e["name"][7:], e["args"]["backend"])
+        elif e["name"] == "resilience.fallback":
+            key = (e["args"]["cls"], "fallback")
+        else:
+            continue
+        device_ms.setdefault(key, []).append(e["dur"] / 1e3)
+    return {"log": log, "snap": chaos_snap, "final": snap,
+            "device_ms": device_ms, "pins": rec.snapshot()["anomaly_pins"],
+            "progs": progs,
+            "outs": [x for o in outs
+                     for x in (o if isinstance(o, tuple) else (o,))]}
+
+
+def chaos_phase(pipe, dev, zero_counts, counts, errs: dict,
+                tag: str) -> dict:
+    """The resilience and tracing planes on the card at the main path's
+    width (RS(2,1), 16 MiB segments, 8 MiB fragments, the chain's key):
+    ``chaos_run`` twice in this process (the same firings, the same
+    bytes); then a ``StreamingIngest`` of 8 pinned segments of 16 MiB
+    under a 10 ms ``stream.h2d`` delay (its tags equal the clean run's)
+    and under a ``stream.dispatch`` raise (it surfaces). After the
+    launches are read, each kernel the engines ran is held against its
+    plain version at every shape in their program caches. Returns the
+    launches of the phase."""
+    import statistics as stats
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch.obs import flight
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.ops.rs import TorchCodec
+    from cess_tpu_torch.resilience import (FaultInjected, FaultPlan,
+                                           FaultSpec, faults)
+    from cess_tpu_torch.serve import StreamingIngest
+
+    cfg = pipe.config
+    n, rows = cfg.fragment_size, cfg.k + cfg.m
+    seed = b"chip-smoke-chaos-round"
+    codec = TorchCodec(cfg.k, cfg.m, device=dev)
+    data = [rand_bytes((2, cfg.k, n), 70 + i, dev) for i in range(4)]
+    enc = [codec.encode(d) for d in data]
+    frs = torch.cat(enc).reshape(-1, n)
+    ids = torch.stack([torch.arange(frs.shape[0], device=dev),
+                       torch.full((frs.shape[0],), 11, device=dev)], dim=1)
+    tags = podr2.tag_fragments(pipe.podr2_key, ids, frs)
+    idx, nu = podr2.gen_challenge(seed, cfg.blocks_per_fragment, device=dev)
+    r = podr2.aggregate_coeffs(seed, ids, device=dev)
+    mu, sigma = podr2.prove_aggregate(frs, tags, idx, nu, r)
+    want = {"data": data, "enc": enc, "ids": ids, "tags": tags, "idx": idx,
+            "nu": nu, "r": r, "mu": mu, "sigma": sigma}
+    want["host"] = {k: [x.cpu().numpy() for x in v] if isinstance(v, list)
+                    else v.cpu().numpy() for k, v in want.items()}
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    runs = [chaos_run(pipe, counts, want) for _ in range(2)]
+    wall_s = time.perf_counter() - t0
+    a, b = runs
+    check(a["log"] == b["log"], f"chaos: firings differ across runs: "
+          f"{a['log']} / {b['log']}")
+    check(len(a["outs"]) == len(b["outs"])
+          and all(np.array_equal(x, y) for x, y in zip(a["outs"], b["outs"])),
+          "chaos: outputs differ across runs")
+
+    def counted(snap):
+        """A resilience snapshot without the breakers' host-clock mean."""
+        return {**snap, "breakers": {
+            name: {f: v for f, v in br.items() if f != "mean_latency_s"}
+            for name, br in snap["breakers"].items()}}
+
+    check(counted(a["snap"]) == counted(b["snap"]),
+          "chaos: degradations or breaker states differ across runs")
+    # the stream's seams at the main path's width
+    src = torch.empty((8, cfg.segment_size), dtype=torch.uint8,
+                      pin_memory=True)
+    src.copy_(rand_bytes(tuple(src.shape), 80, dev))
+    clean = StreamingIngest(pipe, 4).ingest(src)
+    plan = FaultPlan({"stream.h2d": {0: FaultSpec("delay", delay_s=0.01)}})
+    with faults.armed(plan):
+        delayed = StreamingIngest(pipe, 4).ingest(src)
+    check(plan.fired_log() == (("stream.h2d", 0, "delay"),)
+          and torch.equal(delayed["tags"], clean["tags"])
+          and torch.equal(delayed["fragments"], clean["fragments"]),
+          "chaos: the delayed stream differs from the clean one")
+    rec = flight.FlightRecorder(b"chip-chaos-stream")
+    raised = False
+    with flight.armed(rec), faults.armed(FaultPlan(
+            {"stream.dispatch": {1: FaultSpec("raise")}})):
+        try:
+            StreamingIngest(pipe, 4).ingest(src)
+        except FaultInjected:
+            raised = True
+    check(raised and [e["kind"] for e in rec.journal_tail("stream")]
+          == ["escape"], "chaos: the stream.dispatch raise did not surface")
+    torch.cuda.synchronize()
+    launches = counts()
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")),
+          f"chaos: a kernel was not launched: {launches}")
+    del src, clean, delayed
+    held = serve_kernel_checks(
+        list(dict.fromkeys(a["progs"] + b["progs"])), pipe, dev, data, enc,
+        [ids], idx, 0, errs, "chaos")
+    del want, data, enc, frs, tags
+    fired = {}
+    for site, _, _ in a["log"]:
+        fired[site] = fired.get(site, 0) + 1
+    spans = ", ".join(f"{op} {backend} {stats.median(v):.3f} ms (n={len(v)})"
+                      for (op, backend), v in sorted(a["device_ms"].items()))
+    snap, final = a["snap"], a["final"]
+    breakers = "; ".join(
+        f"{name} trips {final['breakers'][name]['trips']}, recoveries "
+        f"{final['breakers'][name]['recoveries']}"
+        for name in ("codec", "audit"))
+    print(f"phase chaos: RS(2,1) engine with resilience and tracing, 2 runs "
+          f"of 4 encodes [2, 2, 8 MiB], 2 tags of 12 fragments, a proof and "
+          f"its verification under FaultPlan.seeded(b'chip-chaos'): "
+          f"{len(a['log'])} firings {fired}, equal in both runs; degraded "
+          f"batches {snap['degraded_batches']}, fallback batches "
+          f"{snap['fallback_batches']}; {breakers}; every result "
+          f"byte-equal to the fault-free path (numpy members; a CUDA member "
+          f"refused while the codec breaker was held open); kernels at the "
+          f"engine's shapes byte-exact against their plain versions: {held}; "
+          f"{a['pins']} anomalous traces "
+          f"pinned; median span (host clock) of completed device.<op> "
+          f"dispatches and of fallbacks: {spans}; stream of 8 "
+          f"x 16 MiB under "
+          f"a 10 ms stream.h2d delay byte-equal, stream.dispatch raise "
+          f"surfaced; phase wall {wall_s * 1e3:.3f} ms (both runs); "
+          f"launches {launches} {tag}")
     return launches
 
 
@@ -884,7 +1202,11 @@ def main(argv: list[str]) -> int:
     launches_stream = stream_phase(pipe, dev, zero_counts, counts, tag)
     torch.cuda.empty_cache()
 
-    # 6. BASELINE geometry RS(4,8) ----------------------------------------
+    # 6. chaos: the resilience and tracing planes under a seeded plan ---
+    launches_chaos = chaos_phase(pipe, dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 7. BASELINE geometry RS(4,8) ----------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -917,7 +1239,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 7. the xor path: RS(4,8) under strategy "xor", audited and repaired --
+    # 8. the xor path: RS(4,8) under strategy "xor", audited and repaired --
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -994,7 +1316,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 8. known answer -------------------------------------------------------
+    # 9. known answer -------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -1003,7 +1325,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 9. kernel times at the main paths' shapes ----------------------------
+    # 10. kernel times at the main paths' shapes ---------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -1107,6 +1429,7 @@ def main(argv: list[str]) -> int:
             "launches": path_launches[label],
             "launches_serve": launches_serve.get(name, 0),
             "launches_stream": launches_stream.get(name, 0),
+            "launches_chaos": launches_chaos.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,

@@ -145,6 +145,8 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch.ops.rs_ref, cess_tpu_torch.ops.regen\n"
             "import cess_tpu_torch.serve, cess_tpu_torch.serve.engine\n"
             "import cess_tpu_torch.serve.stream, cess_tpu_torch.obs.prom\n"
+            "import cess_tpu_torch.resilience, cess_tpu_torch.obs.trace\n"
+            "import cess_tpu_torch.obs.flight\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"
@@ -191,3 +193,90 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
             StoragePipeline(PipelineConfig(segment_size=SEGMENT), engine=eng)
     finally:
         eng.close()
+
+
+@pytest.mark.parametrize("surface", ["pipeline", "engine", "stream"])
+def test_tenant_is_accepted_as_the_reference_accepts_it(surface):
+    """``tenant=`` (the TPU package's per-tenant accounting tag) goes
+    through the pipeline's steps, every engine submit and the stream
+    and changes nothing: the results equal the JAX package's. The
+    smallest case: RS(2,1) on one zero segment of 1 KiB."""
+    from cess_tpu import serve as jserve
+    from cess_tpu.serve import stream as jstream
+    from cess_tpu_torch.serve import StreamingIngest
+
+    jkey = jpodr2.Podr2Key.generate(3)
+    cfg = jpipeline.PipelineConfig(k=2, m=1, segment_size=1024)
+    jeng = eng = None
+    if surface == "engine":
+        eng = make_engine(2, 1, rs_backend="cpu", audit_backend="cpu",
+                          podr2_key=port_pipeline(2, 1, jkey).podr2_key)
+        jeng = jserve.make_engine(2, 1, podr2_key=jkey)
+    jpipe = jpipeline.StoragePipeline(cfg, podr2_key=jkey, engine=jeng)
+    pipe = pipeline_from_arrays(2, 1, 1024, podr2.SECTORS,
+                                np.asarray(jkey.alpha),
+                                np.asarray(jax.random.key_data(jkey.prf_key)),
+                                device="cpu")
+    pipe.engine = eng
+    zero = np.zeros((1, 1024), np.uint8)
+    seg = np.random.default_rng(4).integers(0, 256, (3, 1024), np.uint8)
+    ids = np.random.default_rng(5).integers(0, 1 << 32, (3, 3, 2),
+                                            np.uint64).astype(np.uint32)
+
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and np.array_equal(a.astype(np.int64),
+                                                     b.astype(np.int64))
+
+    try:
+        if surface == "stream":
+            got = StreamingIngest(pipe, 2, tenant="alice").ingest(seg, ids)
+            want = jstream.StreamingIngest(jpipe, 2,
+                                           tenant="alice").ingest(seg, ids)
+            assert same(got["fragments"], want["fragments"])
+            assert same(got["tags"], want["tags"])
+            return
+        enc = pipe.encode_step(zero, tenant="alice")
+        assert tuple(enc.shape) == (1, 3, 512)
+        assert same(enc, jpipe.encode_step(zero, tenant="alice"))
+        frags = pipe.encode_step(seg, tenant="bob")
+        assert same(pipe.tag_step(frags, ids, tenant="bob"),
+                    jpipe.tag_step(np.asarray(frags), ids, tenant="bob"))
+        got = pipe(seg, ids, tenant="carol")
+        want = jpipe.forward(seg, ids, tenant="carol")
+        assert same(got["fragments"], want["fragments"])
+        assert same(got["tags"], want["tags"])
+        if surface != "engine":
+            return
+        # every blocking form of the engine takes the tag too
+        fr = np.asarray(got["fragments"])
+        flat, flat_ids = fr.reshape(9, 512), ids.reshape(9, 2)
+        tags = eng.tag_fragments(flat_ids, flat, tenant="t")
+        assert same(tags, jeng.tag_fragments(flat_ids, flat, tenant="t"))
+        for name, args in (("encode", (fr[:, :2],)),
+                           ("reconstruct", (fr[:, 1:], (1, 2), (0,))),
+                           ("decode_data", (fr[:, 1:], (1, 2)))):
+            assert same(getattr(eng, name)(*args, tenant="t"),
+                        getattr(jeng, name)(*args, tenant="t"))
+        idx, nu = (np.asarray(x) for x in jpodr2.gen_challenge(b"t", 1))
+        r = np.asarray(jpodr2.aggregate_coeffs(b"t", flat_ids))
+        mu, sigma = eng.prove_aggregate(flat, tags, idx, nu, r, tenant="t")
+        jmu, jsigma = jeng.prove_aggregate(flat, np.asarray(tags, np.uint32),
+                                           idx, nu, r, tenant="t")
+        assert same(mu, jmu) and same(sigma, jsigma)
+        assert eng.verify_aggregate(flat_ids, 1, idx, nu, r, mu, sigma,
+                                    tenant="t") is True
+        bmu, bsigma = jpodr2.prove_batch(flat, np.asarray(tags, np.uint32),
+                                         idx, nu)
+        assert same(eng.verify_batch(flat_ids, 1, idx, nu, np.asarray(bmu),
+                                     np.asarray(bsigma), tenant="t"),
+                    jeng.verify_batch(flat_ids, 1, idx, nu, bmu, bsigma,
+                                      tenant="t"))
+        for name, args in (("submit_encode", (fr[:, :2],)),
+                           ("submit_tag", (flat_ids, flat))):
+            assert same(getattr(eng, name)(*args, tenant="t").result(),
+                        getattr(jeng, name)(*args, tenant="t").result())
+    finally:
+        for e in (eng, jeng):
+            if e is not None:
+                e.close()

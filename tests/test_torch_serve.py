@@ -735,8 +735,8 @@ def test_warm_repair_warms_the_regen_folds():
 
 # -- surface -------------------------------------------------------------------
 
-@pytest.mark.parametrize("plane", ["resilience", "tracer", "slo", "adaptive",
-                                   "admission", "pool", "profile"])
+@pytest.mark.parametrize("plane", ["slo", "adaptive", "admission", "pool",
+                                   "profile"])
 def test_unported_planes_are_refused(plane):
     codec = rs.make_codec(2, 1, "cpu")
     with pytest.raises(TypeError):

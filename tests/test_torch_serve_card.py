@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
-from cess_tpu_torch.ops import podr2, rs, rs_kernel
-from cess_tpu_torch.serve import (AdmissionPolicy, StreamingIngest,
-                                  SubmissionEngine, make_engine)
+from cess_tpu_torch.ops import podr2, podr2_kernel, rs, rs_kernel
+from cess_tpu_torch.resilience import (FaultInjected, FaultPlan, FaultSpec,
+                                       HealthMonitor, ResilienceConfig, faults)
+from cess_tpu_torch.serve import (AdmissionPolicy, EngineUnavailable,
+                                  StreamingIngest, SubmissionEngine,
+                                  make_engine)
 from cess_tpu_torch.serve.stats import StreamStats
 
 pytestmark = pytest.mark.gpu
@@ -173,3 +176,92 @@ def test_staged_stream_equals_direct_forward(cuda_device, depth, pinned):
                                             dtype=np.uint64).astype(np.uint32)
     got = ing.ingest(src, fragment_ids=ids)
     assert torch.equal(got["tags"], pipe(seg_dev, ids)["tags"])
+
+
+def test_degraded_batches_keep_both_domains_byte_equal(cuda_device):
+    """A CUDA-tensor member and a numpy member coalesced into one batch
+    whose card attempt fails, then into one its tripped breaker sends to
+    the CPU references: the numpy member gets every byte the card's path
+    gives, as numpy, and launches no kernel; the CUDA member is never
+    served on the host (rejected with the attempt's error, then refused
+    with EngineUnavailable)."""
+    key = podr2.Podr2Key.generate(7, device=cuda_device)
+    res = ResilienceConfig(monitor=lambda: HealthMonitor(min_samples=1,
+                                                         probe_every=100))
+    eng = make_engine(2, 1, podr2_key=key, resilience=res,
+                      policy=AdmissionPolicy(max_delay=0.2))
+    codec = rs.TorchCodec(2, 1, cuda_device)
+    plan = FaultPlan({"engine.dispatch": {0: FaultSpec("raise")}})
+    try:
+        for step, exc in enumerate((FaultInjected, EngineUnavailable)):
+            dev = rand((2, 2, 1 << 16), 30 + step).to(cuda_device)
+            host = rand((3, 2, 1 << 16), 40 + step).numpy()
+            before = rs_kernel.gf_apply.launches
+            with faults.armed(plan):
+                f_dev = eng.submit_encode(dev)
+                f_host = eng.submit_encode(host)
+                with pytest.raises(exc):
+                    f_dev.result(timeout=120)
+                out_host = f_host.result(timeout=120)
+            assert rs_kernel.gf_apply.launches == before
+            assert isinstance(out_host, np.ndarray)
+            assert np.array_equal(out_host, codec.encode(host).cpu().numpy())
+            frags = codec.encode(dev).reshape(6, -1)
+            ids = torch.stack([torch.arange(6), torch.full((6,), 3)], 1)
+            f_t = eng.submit_tag(ids.to(cuda_device), frags)
+            f_n = eng.submit_tag(ids.numpy(), frags.cpu().numpy())
+            want = podr2.tag_fragments(key, ids.to(cuda_device), frags)
+            if step == 0:
+                assert torch.equal(f_t.result(timeout=120), want)
+            else:
+                with pytest.raises(EngineUnavailable):
+                    f_t.result(timeout=120)
+            assert np.array_equal(f_n.result(timeout=120),
+                                  want.cpu().numpy())
+            eng.monitors["audit"].force_open()
+        snap = res.stats.snapshot()
+        assert snap["fallback_batches"] == {"encode": 1}
+        assert snap["degraded_batches"] == {"encode": 1, "tag": 1}
+        assert snap["batch_requeues"] == 2
+        assert eng.monitors["codec"].state == "open"
+        assert eng.stats_snapshot()["classes"]["encode"]["failed"] == 2
+        assert any(k[-1] == "cpu-fallback" for k in eng.programs.keys())
+    finally:
+        eng.close()
+
+
+def test_recovery_relaunches_the_kernels(cuda_device):
+    """While a breaker is open no kernel launches (numpy members are
+    served on the host); the probe that closes it, and every batch
+    after, runs on the card's kernels again."""
+    key = podr2.Podr2Key.generate(8, device=cuda_device)
+    res = ResilienceConfig(monitor=lambda: HealthMonitor(probe_every=2))
+    eng = make_engine(2, 1, podr2_key=key, resilience=res,
+                      policy=AdmissionPolicy(max_delay=0.001))
+    codec = rs.TorchCodec(2, 1, cuda_device)
+    try:
+        eng.monitors["codec"].force_open()
+        eng.monitors["audit"].force_open()
+        kernels = (rs_kernel.gf_apply, podr2_kernel.prf_blocks,
+                   podr2_kernel.podr2_tag)
+        ids = np.stack([np.arange(3), np.zeros(3, np.int64)], 1)
+        for step in range(3):
+            data = rand((1, 2, 1 << 16), 50 + step)
+            before = [k.launches for k in kernels]
+            out = eng.encode(data.numpy())
+            tags = eng.tag_fragments(ids, out.reshape(3, -1))
+            rose = [k.launches > b for k, b in zip(kernels, before)]
+            # step 0: degraded; step 1: the probe closes both breakers
+            assert rose == [step > 0] * 3, (step, rose)
+            want = codec.encode(data.to(cuda_device))
+            assert np.array_equal(out, want.cpu().numpy())
+            assert np.array_equal(tags, podr2.tag_fragments(
+                key, torch.from_numpy(ids).to(cuda_device),
+                want.reshape(3, -1)).cpu().numpy())
+        assert eng.monitors["codec"].state == "closed"
+        assert eng.monitors["audit"].state == "closed"
+        snap = res.stats.snapshot()
+        assert snap["degraded_batches"] == {"encode": 1, "tag": 1}
+        assert snap["breakers"]["codec"]["recoveries"] == 1
+    finally:
+        eng.close()
