@@ -16,6 +16,8 @@ its fused encode + tag program); ``serve`` (the submission engine
 ingest ``StreamingIngest``, with ``policy``, ``buckets`` and ``stats``);
 ``resilience`` (fault injection, retry, breakers, their counters);
 ``obs`` (``trace``, ``flight``, ``prom``: spans, the flight recorder, the
-engine's latency histograms); ``convert`` (keys from the TPU package's
-arrays); ``kat`` (the known-answer digest); ``_build``.
+engine's latency histograms); ``node`` (``hashing``, ``offchain``: the
+device half of the off-chain agents, host arrays in and out);
+``convert`` (keys from the TPU package's arrays); ``kat`` (the
+known-answer digest); ``_build``.
 """

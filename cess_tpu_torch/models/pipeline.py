@@ -73,7 +73,8 @@ class StoragePipeline(nn.Module):
     ``engine``: an optional ``serve.SubmissionEngine``; ``encode_step``
     and ``tag_step`` (with id pairs) then submit through it. An engine
     whose codec geometry or audit key differs from the pipeline's is
-    refused: it would compute other bytes than the direct path."""
+    refused, at construction and when ``engine`` is set later: it would
+    compute other bytes than the direct path."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  podr2_key: podr2.Podr2Key | None = None, device=None,
@@ -101,15 +102,26 @@ class StoragePipeline(nn.Module):
         self.register_buffer("alpha", key.alpha)
         self.register_buffer("prf_key", key.prf_key)
         self.engine = engine
+
+    @property
+    def engine(self):
+        return self._engine
+
+    @engine.setter
+    def engine(self, engine) -> None:
+        """Set (or clear, with None) the submission engine; refused when
+        its codec geometry or audit key differs from the pipeline's."""
+        cfg = self.config
         if engine is not None and engine.codec is not None \
-                and (engine.codec.k, engine.codec.m) != (config.k, config.m):
+                and (engine.codec.k, engine.codec.m) != (cfg.k, cfg.m):
             raise ValueError(
                 f"engine codec RS({engine.codec.k},{engine.codec.m}) != "
-                f"pipeline RS({config.k},{config.m})")
+                f"pipeline RS({cfg.k},{cfg.m})")
         if engine is not None and engine.audit is not None \
-                and not podr2.keys_equal(engine.audit.key, key):
+                and not podr2.keys_equal(engine.audit.key, self.podr2_key):
             raise ValueError("engine AuditBackend key differs from "
                              "the pipeline's PoDR2 key")
+        self._engine = engine
 
     @property
     def podr2_key(self) -> podr2.Podr2Key:

@@ -61,9 +61,29 @@ limit):
    is held against its plain version at every shape in their program
    caches. Every other phase builds its engines without
    ``resilience``;
-7. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+7. agents: the off-chain agents' device half (``cess_tpu_torch.node``)
+   at the main path's width, RS(2,1) with 16 MiB segments and the chain's
+   key ``Podr2Key.generate(7)``: a gateway's ``upload_batch`` of 512 MiB
+   (encode, one fetch of the fragments, sha256 identities, tags from the
+   fragments left on the card), byte-equal to ``StoragePipeline``; three
+   miners holding one row of every segment (32 fragments) and 4
+   certified fillers of 8 MiB each; one audit round of ``prove_owed``
+   and ``verify_owed``: honest proofs true, an empty owed set with a zero
+   proof true, a dropped fragment, storage XORed with 0xA5 and a wrong
+   owed set false; the same upload and round through a port engine (the
+   miners prove from three threads at once, the prove class coalesces),
+   every fragment, tag, proof and verdict byte-equal; then the dropped
+   fragment and one lost fragment of each row rebuilt cold, warm (after
+   ``warm_restoral``) and by regen symbol chains, each hashing to its
+   identity. Counters are zeroed just before and read just after;
+   ``gf_apply``, ``prf_blocks`` and ``podr2_tag`` must launch, and each
+   is then held against its plain version at every shape the phase ran
+   (the engine's from its program cache); the line gives the upload's
+   stages, the round direct and through the engine, the repairs and the
+   peak device memory;
+8. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-8. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+9. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -71,10 +91,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-9. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+10. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-10. kernel times beside the plain versions' times and each kernel's
+11. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -85,7 +105,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-11. with ``--parent DIR`` (another checkout of the repository, e.g. the
+12. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -100,10 +120,9 @@ wrapper in a CUDA graph and replays it.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
-``launches_stream`` and ``launches_chaos`` from phases 4, 5 and 6); the
-last
-is ``{"ok": true, "device": {...}}``. Any failed check raises and the
-script exits non-zero; without a CUDA device it exits 2 and prints no
+``launches_stream``, ``launches_chaos`` and ``launches_agents`` from
+phases 4, 5, 6 and 7); the last is ``{"ok": true, "device": {...}}``.
+Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
 """
 from __future__ import annotations
@@ -259,7 +278,7 @@ def serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
     the CPU references' ``cpu-fallback`` keys run no kernel and are
     skipped), the inputs are the phase's own, stacked and zero-padded as
     the engine pads them (verify_agg: ``ids[0]`` then each of ``ids`` as
-    a mission, each padded to F_bucket). The kernel runs at the whole
+    a mission, each cut or padded to F_bucket). The kernel runs at the whole
     shape; its plain version runs on slices of rows (every op keeps rows
     apart) and must give the same bytes. Returns the shapes held."""
     import torch
@@ -325,7 +344,7 @@ def serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
             fb, rb = k[2], k[3]
             st = torch.zeros((rb, fb, 2), dtype=torch.int64, device=dev)
             for j, m in enumerate(missions[:rb]):
-                st[j, :m.shape[0]] = m
+                st[j, :min(fb, m.shape[0])] = m[:fb]
             flat = st.view(-1, 2)
             got = podr2_kernel.prf_blocks(key.prf_key, flat, idx,
                                           idx.numel(), limbs)
@@ -881,6 +900,346 @@ def chaos_phase(pipe, dev, zero_counts, counts, errs: dict,
     return launches
 
 
+def agents_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
+                 nseg: int = 32) -> dict:
+    """The off-chain agents' device half (``cess_tpu_torch.node``) at the
+    main path's width: RS(2,1), 16 MiB segments, the chain's key
+    ``Podr2Key.generate(7)``. A gateway uploads ``nseg`` segments
+    (``upload_batch``: encode, one fetch, sha256 identities, tags from the
+    fragments left on the card); three miners hold one row of every
+    segment each and 4 fillers of a fragment's size the TEE certifies;
+    one audit
+    round (each miner's service and idle proofs, ``prove_owed``, checked
+    by ``verify_owed``) in which miner 1 has dropped a fragment, an
+    adversary serves miner 2's deal from bytes XORed with 0xA5, a proof
+    is checked against another owed set and an empty set proves zero;
+    the upload and round again through a port engine (the miners prove
+    from three threads at once), byte-equal; then repairs of the dropped
+    fragment and one lost fragment of each row, cold, after
+    ``warm_restoral`` and by regen symbol chains, each hashing to its
+    identity. Counters are zeroed just before and read just after; then
+    each kernel is held against its plain version at every shape the
+    phase ran, the engine's program-cache shapes included. A smaller
+    ``cfg`` and ``nseg`` (at least 13) rehearse the phase on the CPU.
+    Returns the launches of the phase."""
+    import threading
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch.models.pipeline import PipelineConfig
+    from cess_tpu_torch.node import offchain as oc
+    from cess_tpu_torch.node.hashing import filler_bytes, fragment_hash
+    from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, regen
+    from cess_tpu_torch.ops import rs_kernel
+    from cess_tpu_torch.serve import AdmissionPolicy, make_engine
+
+    cfg = cfg or PipelineConfig()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    n, rows, blocks = cfg.fragment_size, cfg.k + cfg.m, cfg.blocks_per_fragment
+    key = podr2.Podr2Key.generate(7, device=dev)
+    pipe = oc.AgentPipeline(cfg, podr2_key=key, device=dev)
+    data = rand_bytes((nseg, cfg.segment_size), 90, dev).cpu().numpy()
+    seed = b"chip-smoke-agents-round"
+    miners = [f"m{j}" for j in range(rows)]
+    fillers = 4
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_phase = time.perf_counter()
+
+    # the gateway's upload
+    t0 = time.perf_counter()
+    up = oc.upload_batch(pipe, data, tenant="alice")
+    upload_s = time.perf_counter() - t0
+    check(up.fetches == 1 and pipe.fragment_uploads == 0,
+          f"agents: the upload fetched {up.fetches} times and uploaded "
+          f"fragments {pipe.fragment_uploads} times (want 1 and 0)")
+
+    # the deal: miner j holds row j of every segment, and its fillers
+    owed = [[hs[j] for hs in up.fragment_hashes] for j in range(rows)]
+    stores = [{h: up.fragments[i, j] for i, h in enumerate(owed[j])}
+              for j in range(rows)]
+    tagmaps = [{h: up.tags[i, j] for i, h in enumerate(owed[j])}
+               for j in range(rows)]
+    t0 = time.perf_counter()
+    idle, fstores, ftags = [], [], []
+    for miner in miners:
+        blobs = [filler_bytes(miner, i, n) for i in range(fillers)]
+        hashes, ftag = oc.certify_fillers(key, miner, range(fillers), blobs,
+                                          blocks, device=dev)
+        idle.append(hashes)
+        fstores.append(dict(zip(hashes, blobs)))
+        ftags.append(dict(zip(hashes, ftag)))
+    filler_s = time.perf_counter() - t0
+    dropped_seg = 3
+    dropped = owed[1][dropped_seg]
+    del stores[1][dropped]
+    adversary = {h: np.bitwise_xor(f, 0xA5) for h, f in stores[2].items()}
+
+    # one audit round: every miner's proofs, then the TEE's checks
+    def audit_round(engine):
+        """(proofs, verdicts, seconds proving, seconds checking)."""
+        proofs = {}
+        t0 = time.perf_counter()
+
+        def prove(j):
+            proofs["service", j] = oc.prove_owed(
+                seed, owed[j], stores[j], tagmaps[j], engine=engine,
+                tenant=miners[j], device=dev)
+            proofs["idle", j] = oc.prove_owed(
+                seed, idle[j], fstores[j], ftags[j], engine=engine,
+                tenant=miners[j], device=dev)
+
+        if engine is None:
+            for j in range(rows):
+                prove(j)
+        else:
+            errors = []
+            start = threading.Barrier(rows)
+
+            def worker(j):
+                try:
+                    start.wait()
+                    prove(j)
+                except BaseException as e:  # reported by the main thread
+                    errors.append((j, e))
+                    start.abort()
+
+            workers = [threading.Thread(target=worker, args=(j,))
+                       for j in range(rows)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(600)
+            check(not errors and not any(w.is_alive() for w in workers),
+                  f"agents: a proving miner failed or hung: {errors[:1]}")
+        proofs["adversary"] = oc.prove_owed(seed, owed[2], adversary,
+                                            tagmaps[2], engine=engine,
+                                            tenant="mx", device=dev)
+        proofs["empty"] = oc.prove_owed(seed, [], {}, {}, engine=engine,
+                                        device=dev)
+        t1 = time.perf_counter()
+        checks = {("service", j): (owed[j], ("service", j))
+                  for j in range(rows)}
+        checks.update({("idle", j): (idle[j], ("idle", j))
+                       for j in range(rows)})
+        checks["adversary"] = (owed[2], "adversary")
+        checks["wrong owed set"] = (owed[2], ("service", 0))
+        checks["empty"] = ([], "empty")
+        # the TEE derives the round's challenge once, as TeeAgent does
+        idx, nu = oc.HostPodr2(dev).gen_challenge(seed, blocks)
+        verdicts = {name: oc.verify_owed(key, blocks, seed, hashes,
+                                         *proofs[proof], idx=idx, nu=nu,
+                                         engine=engine, tenant="tee0",
+                                         device=dev)
+                    for name, (hashes, proof) in checks.items()}
+        return proofs, verdicts, t1 - t0, time.perf_counter() - t1
+
+    proofs, verdicts, prove_s, verify_s = audit_round(None)
+    false = {("service", 1), "adversary", "wrong owed set"}
+    want = {name: name not in false for name in verdicts}
+    check(verdicts == want, f"agents: verdicts {verdicts} != {want}")
+
+    # the same upload and round through a port engine
+    eng = make_engine(cfg.k, cfg.m, podr2_key=key, rs_backend=dev.type,
+                      audit_backend=dev.type,
+                      policy=AdmissionPolicy(max_delay=0.05))
+    pipe.engine = eng
+    try:
+        t0 = time.perf_counter()
+        up_e = oc.upload_batch(pipe, data, tenant="alice")
+        upload_e_s = time.perf_counter() - t0
+        proofs_e, verdicts_e, prove_e_s, verify_e_s = audit_round(eng)
+        snap = eng.stats_snapshot()
+        progs = eng.programs.keys()
+    finally:
+        pipe.engine = None
+        eng.close()
+    check(np.array_equal(up_e.fragments, up.fragments)
+          and np.array_equal(up_e.tags, up.tags)
+          and np.array_equal(up_e.ids, up.ids)
+          and up_e.fragment_hashes == up.fragment_hashes
+          and up_e.file_hash == up.file_hash and up_e.fetches == 1,
+          "agents: the engine's upload differs from the direct one")
+    check(proofs_e.keys() == proofs.keys()
+          and all(np.array_equal(proofs_e[p][i], proofs[p][i])
+                  and proofs_e[p][i].dtype == np.uint32
+                  for p in proofs for i in (0, 1)),
+          "agents: a proof through the engine differs from the direct one")
+    check(verdicts_e == verdicts, f"agents: the engine's verdicts "
+          f"{verdicts_e} != the direct path's {verdicts}")
+    prove_cls = snap["classes"]["prove"]
+    check(prove_cls["batch_occupancy"] > 1,
+          f"agents: the miners' proofs did not coalesce: {prove_cls}")
+
+    # repair: the dropped fragment and one lost fragment of each row
+    lost = [(1, dropped_seg)] + [(j, 10 + j) for j in range(rows)]
+
+    def survivors(row, s):
+        present = tuple(x for x in range(rows) if x != row)[:cfg.k]
+        return present, [stores[x][up.fragment_hashes[s][x]]
+                         for x in present]
+
+    def repaired(rebuild) -> list[float]:
+        times = []
+        for row, s in lost:
+            present, surv = survivors(row, s)
+            t0 = time.perf_counter()
+            blob = rebuild(present, surv, row)
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(blob is not None and fragment_hash(blob)
+                  == up.fragment_hashes[s][row],
+                  f"agents: the repair of row {row} of segment {s} does not "
+                  f"hash to its identity")
+        return times
+
+    def by_fragments(present, surv, row):
+        return oc.repair_via_fragments(cfg.k, cfg.m, surv, present, row,
+                                       tenant="m0", device=dev)
+
+    codec = oc.host_codec(cfg.k, cfg.m, device=dev)
+    cold = repaired(by_fragments)
+    oc.warm_restoral(cfg.k, cfg.m, n, device=dev)
+    hits = codec.warm_hits
+    warm = repaired(by_fragments)
+    check(codec.warm_hits - hits == len(lost),
+          f"agents: {codec.warm_hits - hits} warm hits, not {len(lost)}")
+    symbol_codec = oc.host_codec(cfg.k, cfg.m, "regen", device=dev)
+    symbols = repaired(lambda present, surv, row: oc.repair_via_symbols(
+        cfg.k, cfg.m, present, row, surv, codec=symbol_codec))
+    sync()
+    phase_s = time.perf_counter() - t_phase
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")),
+          f"agents: a kernel was not launched by the agents: {launches}")
+
+    # each kernel at every shape the phase ran, against its plain version
+    def held(name, got, plain):
+        e = max_err(got, plain)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"agents: {name} at {tuple(got.shape)} differs from "
+              f"its plain version")
+
+    seg_t = torch.from_numpy(data).to(dev).view(nseg, cfg.k, n)
+    frags_t = torch.from_numpy(np.array(up.fragments)).to(dev)
+    want = pipe.pipeline(seg_t.view(nseg, -1), torch.from_numpy(
+        up.ids.astype(np.int64)).to(dev))
+    check(torch.equal(want["fragments"], frags_t)
+          and np.array_equal(want["tags"].cpu().numpy(), up.tags),
+          "agents: the upload differs from StoragePipeline.forward on the "
+          "same segments and ids")
+    del want
+    # the fetch's bound on this host: the same bytes copied into pinned
+    # memory, and what allocating that memory costs
+    t0 = time.perf_counter()
+    pinned = torch.empty(tuple(frags_t.shape), dtype=torch.uint8,
+                         pin_memory=cuda)
+    pin_alloc_ms = (time.perf_counter() - t0) * 1e3
+    pinned_ms = host_ms(lambda: pinned.copy_(frags_t)) if cuda else 0.0
+    fetched = frags_t.numel()
+    del pinned
+    shapes = []
+
+    seen = set()
+
+    def gf_at(mat, x, what):
+        mat = np.asarray(mat, np.uint8)
+        if (mat.tobytes(), mat.shape, x.shape) in seen:
+            return
+        seen.add((mat.tobytes(), mat.shape, x.shape))
+        tab = rs_kernel.tables(mat, dev)
+        held("gf_apply", rs_kernel.gf_apply(tab, x),
+             rs_kernel.gf_apply_plain(tab, x))
+        shapes.append(f"gf_apply {what} {tuple(x.shape)}")
+
+    gf_at(gf.cauchy_parity_matrix(cfg.k, cfg.m), seg_t, "encode")
+    for row, s in lost:
+        present, _ = survivors(row, s)
+        surv = frags_t[s:s + 1, list(present)]
+        gf_at(gf.repair_matrix(cfg.k, cfg.m, present, (row,)), surv,
+              f"repair {present}->{row}")
+        for p, c in enumerate(regen.repair_coeffs(cfg.k, cfg.m, present,
+                                                  (row,))):
+            pair = torch.stack([frags_t[s, present[0]],
+                                frags_t[s, present[p]]])[None]
+            gf_at(np.array([[1, c]]), pair, f"fold {c}")
+    id_t = torch.from_numpy(up.ids.reshape(-1, 2).astype(np.int64)).to(dev)
+    filler_t = torch.from_numpy(np.stack([np.frombuffer(b, np.uint8)
+                                          for b in fstores[0].values()])).to(dev)
+    filler_ids = torch.from_numpy(np.stack([
+        podr2.fragment_id_from_hash(h) for h in idle[0]]).astype(
+            np.int64)).to(dev)
+    every = torch.arange(blocks, device=dev)
+    for ids, fr in ((id_t, frags_t.view(-1, n)), (filler_ids, filler_t)):
+        prf_lm = podr2_kernel.prf_blocks(key.prf_key, ids, None, blocks,
+                                         key.limbs, limb_major=True)
+        held("prf_blocks", prf_lm, prf.prf_plain(key.prf_key, ids, every,
+                                                 key.limbs).transpose(1, 2))
+        fb = fr.view(-1, blocks, podr2.BLOCK_BYTES)
+        held("podr2_tag", podr2_kernel.podr2_tag(key.weights, prf_lm, fb),
+             podr2_kernel.podr2_tag_plain(key.weights, prf_lm, fb))
+        shapes.append(f"prf_blocks (limb-major) and podr2_tag "
+                      f"{ids.shape[0]} x {blocks}")
+        del prf_lm, fb
+    idx = podr2.gen_challenge(seed, blocks, device=dev)[0]
+    owed_ids = [torch.from_numpy(np.stack([
+        podr2.fragment_id_from_hash(h) for h in hs]).astype(np.int64)).to(dev)
+        for hs in owed]
+    for ids in (owed_ids[0], filler_ids):
+        held("prf_blocks", podr2_kernel.prf_blocks(
+            key.prf_key, ids, idx, idx.numel(), key.limbs),
+            prf.prf_plain(key.prf_key, ids, idx, key.limbs))
+        shapes.append(f"prf_blocks {ids.shape[0]} x {idx.numel()}")
+    del frags_t, filler_t
+    sync()
+    engine_shapes = serve_kernel_checks(
+        progs, pipe.pipeline, dev, [seg_t],
+        [torch.from_numpy(np.array(up.fragments)).to(dev)], owed_ids, idx,
+        0, errs, "agents")
+    del seg_t
+    if cuda:
+        torch.cuda.empty_cache()
+    split = ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in up.seconds.items())
+    split_e = ", ".join(f"{k} {v * 1e3:.3f} ms"
+                        for k, v in up_e.seconds.items())
+    print(f"phase agents: RS(2,1) upload of {nseg} x "
+          f"{cfg.segment_size // MIB} MiB segments ({nseg * rows} fragments "
+          f"of {n // MIB} MiB) {upload_s * 1e3:.3f} ms ({split}; one fetch, "
+          f"no fragment re-upload), through the engine "
+          f"{upload_e_s * 1e3:.3f} ms ({split_e}), byte-equal; {rows} miners x "
+          f"{nseg} fragments + {fillers} fillers each (filler generation and "
+          f"certification {filler_s * 1e3:.3f} ms); audit round direct "
+          f"{(prove_s + verify_s) * 1e3:.3f} ms (9 proofs {prove_s * 1e3:.3f}, "
+          f"9 checks {verify_s * 1e3:.3f}), through the engine "
+          f"{(prove_e_s + verify_e_s) * 1e3:.3f} ms (proofs "
+          f"{prove_e_s * 1e3:.3f}, checks {verify_e_s * 1e3:.3f}; prove "
+          f"occupancy {prove_cls['batch_occupancy']}, "
+          f"{prove_cls['batches']} batches), every proof and verdict "
+          f"byte-equal; verdicts {sorted(str(k) for k, v in verdicts.items() if v)} "
+          f"true, {sorted(str(k) for k in false)} false; repairs of "
+          f"{len(lost)} fragments (ms each) cold "
+          f"{', '.join(f'{t:.3f}' for t in cold)}, warm "
+          f"{', '.join(f'{t:.3f}' for t in warm)} ({len(lost)} warm hits), "
+          f"by symbols {', '.join(f'{t:.3f}' for t in symbols)}, each "
+          f"hashing to its identity; the fetch's bound: a pinned copy_ of the "
+          f"same {fetched // MIB} MiB {pinned_ms:.3f} ms "
+          f"({fetched / max(pinned_ms, 1e-9) / 1e6:.3f} GB/s), its "
+          f"pinned allocation {pin_alloc_ms:.3f} ms; peak {peak / MIB:.1f} "
+          f"MiB; phase wall "
+          f"{phase_s * 1e3:.3f} ms; kernels byte-exact against their plain "
+          f"versions at the phase's shapes: {', '.join(shapes)}; at the "
+          f"engine's: {engine_shapes}; launches {launches} {tag}")
+    return launches
+
+
 def parent_turns(parent: str, cases, tag: str) -> None:
     """Time each case's wrapper with the kernels built from ``parent``'s
     sources and with this tree's, in turns parent, change, change,
@@ -1206,7 +1565,11 @@ def main(argv: list[str]) -> int:
     launches_chaos = chaos_phase(pipe, dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 7. BASELINE geometry RS(4,8) ----------------------------------------
+    # 7. agents: the off-chain agents' device half at the main path's width
+    launches_agents = agents_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 8. BASELINE geometry RS(4,8) ----------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -1239,7 +1602,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 8. the xor path: RS(4,8) under strategy "xor", audited and repaired --
+    # 9. the xor path: RS(4,8) under strategy "xor", audited and repaired --
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -1316,7 +1679,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 9. known answer -------------------------------------------------------
+    # 10. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -1325,7 +1688,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 10. kernel times at the main paths' shapes ---------------------------
+    # 11. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -1430,6 +1793,7 @@ def main(argv: list[str]) -> int:
             "launches_serve": launches_serve.get(name, 0),
             "launches_stream": launches_stream.get(name, 0),
             "launches_chaos": launches_chaos.get(name, 0),
+            "launches_agents": launches_agents.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,

@@ -147,6 +147,8 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch.serve.stream, cess_tpu_torch.obs.prom\n"
             "import cess_tpu_torch.resilience, cess_tpu_torch.obs.trace\n"
             "import cess_tpu_torch.obs.flight\n"
+            "import cess_tpu_torch.node, cess_tpu_torch.node.hashing\n"
+            "import cess_tpu_torch.node.offchain\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"
