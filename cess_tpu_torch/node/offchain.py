@@ -29,7 +29,6 @@ its fault seams ``offchain.symbol`` (drop) and ``offchain.symbol_bytes``
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 import os
@@ -87,8 +86,8 @@ class HostPodr2:
     int32 indices), or a Python ``bool`` for a verdict.
 
     ``key_adapter``: an optional callable that turns a foreign key object
-    (the TPU package's key) into a port ``Podr2Key``; each foreign key is
-    converted once. ``calls`` counts the calls of each function."""
+    (the TPU package's key) into a port ``Podr2Key``, for a caller that
+    holds only such keys."""
 
     SECTORS = podr2.SECTORS
     BLOCK_BYTES = podr2.BLOCK_BYTES
@@ -100,13 +99,6 @@ class HostPodr2:
     def __init__(self, device=None, key_adapter=None):
         self.device = resolve_device(device)
         self.key_adapter = key_adapter
-        self.calls: collections.Counter = collections.Counter()
-        self._adapted: dict[int, tuple] = {}
-        self._lock = threading.Lock()
-
-    def _count(self, name: str) -> None:
-        with self._lock:
-            self.calls[name] += 1
 
     def port_key(self, key) -> podr2.Podr2Key:
         """``key`` as a port key on this device: a port key as it is, any
@@ -116,22 +108,14 @@ class HostPodr2:
         if self.key_adapter is None:
             raise TypeError(f"{type(key).__name__} is not a port Podr2Key; "
                             "pass key_adapter= to convert it")
-        with self._lock:
-            hit = self._adapted.get(id(key))
-            if hit is None or hit[0] is not key:
-                # the foreign key is held too, so its id is never reused
-                hit = (key, self.key_adapter(key).to(self.device))
-                self._adapted[id(key)] = hit
-        return hit[1]
+        return self.key_adapter(key).to(self.device)
 
     def keys_equal(self, a, b) -> bool:
-        self._count("keys_equal")
         return podr2.keys_equal(self.port_key(a), self.port_key(b))
 
     def tag_fragments(self, key, fragment_ids, fragments) -> np.ndarray:
         """ids [F, 2] (or [F]), fragments [F, bytes] uint8 -> tags [F,
         blocks, limbs] uint32."""
-        self._count("tag_fragments")
         frags = _tensor(fragments, self.device, torch.uint8)
         return _field(podr2.tag_fragments(self.port_key(key),
                                           np.asarray(fragment_ids), frags))
@@ -139,13 +123,11 @@ class HostPodr2:
     def gen_challenge(self, seed, num_blocks: int, count: int | None = None
                       ) -> tuple[np.ndarray, np.ndarray]:
         """(indices [c] int32, nu [c] uint32), derived on the host."""
-        self._count("gen_challenge")
         idx, nu = podr2.gen_challenge(seed, num_blocks, count, device="cpu")
         return idx.numpy().astype(np.int32), nu.numpy().astype(np.uint32)
 
     def aggregate_coeffs(self, seed: bytes, fragment_ids) -> np.ndarray:
         """r [F] uint32 for ids [F, 2]."""
-        self._count("aggregate_coeffs")
         return _field(podr2.aggregate_coeffs(seed, np.asarray(fragment_ids),
                                              device=self.device))
 
@@ -154,7 +136,6 @@ class HostPodr2:
                         ) -> tuple[np.ndarray, np.ndarray]:
         """(mu [sectors], sigma [limbs]) uint32 over fragments [F, bytes]
         and tags [F, blocks, limbs]."""
-        self._count("prove_aggregate")
         dev = self.device
         mu, sigma = podr2.prove_aggregate(
             _tensor(fragments, dev, torch.uint8),
@@ -165,7 +146,6 @@ class HostPodr2:
 
     def verify_aggregate(self, key, fragment_ids, num_blocks: int, idx, nu,
                          r, mu, sigma) -> bool:
-        self._count("verify_aggregate")
         dev = self.device
         return bool(podr2.verify_aggregate(
             self.port_key(key), np.asarray(fragment_ids), num_blocks,
@@ -320,20 +300,24 @@ class HostRegenCodec(HostCodec):
         self.codec.warm_fold(coeff, shape)
 
 
-@functools.lru_cache(maxsize=None)
 def host_codec(k: int, m: int, backend: str | None = None,
                strategy: str | None = None, device=None) -> HostCodec:
     """The codec the agents repair with, cached so that every caller with
-    the same arguments (``warm_restoral``, then each repair) gets the same
-    instance and its warm programs. ``backend`` as for ``ops.rs.
-    make_codec``: None, "auto" and "cuda" run on the card, "cpu" on the
-    host, "regen" is the regenerating codec (``HostRegenCodec``) on
-    ``device``. ``device``: where it runs, the card by default."""
-    if backend not in (None, "auto", "cpu", "cuda", "regen"):
-        raise ValueError(f"unknown ErasureCodec backend {backend!r}")
-    if backend in ("cpu", "cuda"):
-        device = backend
-    if backend == "regen":
+    the same arguments on the same device (``warm_restoral``, then each
+    repair) gets the same instance and its warm programs. ``backend``:
+    None for the port's codec, "regen" for the regenerating codec
+    (``HostRegenCodec``). ``device``: where it runs, the card by
+    default."""
+    if backend not in (None, "regen"):
+        raise ValueError(f"unknown host codec backend {backend!r}")
+    return _host_codec(k, m, backend == "regen", strategy,
+                       resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _host_codec(k: int, m: int, regen_: bool, strategy: str | None,
+                device: torch.device) -> HostCodec:
+    if regen_:
         return HostRegenCodec(regen.RegenCodec(k, m, device, strategy))
     return HostCodec(TorchCodec(k, m, device, strategy))
 
@@ -450,7 +434,13 @@ def verify_owed(key: podr2.Podr2Key, blocks: int, seed: bytes, owed, mu,
     sigma must be uint32 arrays of [SECTORS] and [key.limbs] with sigma
     below p, an empty owed set passes only an all-zero proof, and
     otherwise the aggregated equation must hold. ``idx``/``nu``: the
-    round's challenge, derived from ``seed`` when not given."""
+    round's challenge, derived from ``seed`` when not given. An engine
+    whose audit key is not ``key`` is refused (ValueError), as the TEE
+    refuses it: its verdict would hold under another key."""
+    if engine is not None and engine.audit is not None \
+            and not podr2.keys_equal(engine.audit.key, key):
+        raise ValueError("engine AuditBackend key differs from the "
+                         "verifier's PoDR2 key")
     with trace.span("offchain.verify", sys="offchain",
                     owed=len(owed)) as span:
         ok = _verify(key, blocks, seed, owed, mu, sigma, idx, nu, engine,
@@ -540,15 +530,15 @@ def repair_via_fragments(k: int, m: int, survivors, present, row: int, *,
         return np.asarray(rec)[0].tobytes()
 
 
-def repair_symbol(fragment, coeff: int, acc=None, *, codec=None,
-                  engine=None, tenant: str | None = None
-                  ) -> np.ndarray | None:
-    """One helper's hop of a regenerating repair: ``acc ^ coeff *
-    fragment`` (acc None: zeros). None when the helper cannot serve: no
-    fragment, or the hop dropped at seam ``offchain.symbol``. The result
-    passes seam ``offchain.symbol_bytes``. Folds on the engine when its
-    codec has ``fold_symbol``, else on ``codec`` (a ``HostRegenCodec``),
-    else on the host."""
+def repair_symbol(k: int, m: int, fragment, coeff: int, acc=None, *,
+                  codec=None, engine=None, tenant: str | None = None,
+                  device=None) -> np.ndarray | None:
+    """One helper's hop of a regenerating repair of RS(k, m): ``acc ^
+    coeff * fragment`` (acc None: zeros). None when the helper cannot
+    serve: no fragment, or the hop dropped at seam ``offchain.symbol``.
+    The result passes seam ``offchain.symbol_bytes``. Folds on the engine
+    when its codec has ``fold_symbol``, else on ``codec`` or
+    ``host_codec(k, m, "regen", device=device)``."""
     if fragment is None:
         return None
     if not faults.allow("offchain.symbol"):
@@ -556,26 +546,27 @@ def repair_symbol(fragment, coeff: int, acc=None, *, codec=None,
     frag = np.frombuffer(fragment, dtype=np.uint8)
     acc = np.zeros_like(frag) if acc is None \
         else np.asarray(acc, dtype=np.uint8)
+    pairs = np.stack([acc, frag])
     if engine is not None and engine.codec is not None \
             and hasattr(engine.codec, "fold_symbol"):
-        sym = np.asarray(engine.repair_symbol(np.stack([acc, frag]),
-                                              int(coeff), tenant=tenant))[0]
-    elif codec is not None:
-        sym = codec.fold_symbol(np.stack([acc, frag]), int(coeff))[0]
+        sym = np.asarray(engine.repair_symbol(pairs, int(coeff),
+                                              tenant=tenant))[0]
     else:
-        sym = regen.fold_symbol_host(acc, frag, int(coeff))
+        codec = codec or host_codec(k, m, "regen", device=device)
+        sym = codec.fold_symbol(pairs, int(coeff))[0]
     return np.asarray(faults.corrupt("offchain.symbol_bytes", sym),
                       dtype=np.uint8)
 
 
 def repair_via_symbols(k: int, m: int, present, row: int, helpers, *,
-                       codec=None, engine=None, tenant: str | None = None
-                       ) -> bytes | None:
+                       codec=None, engine=None, tenant: str | None = None,
+                       device=None) -> bytes | None:
     """Regenerating repair: each helper (its fragment bytes, or None, in
     the order of ``present``) folds its coefficient times its fragment
-    into the travelling sum (``repair_symbol``), and the last sum is the
-    lost row. None when the pattern has no chain or a hop refuses. The
-    caller checks the result against the fragment's hash."""
+    into the travelling sum (``repair_symbol``, on the engine, ``codec``
+    or ``host_codec(k, m, "regen", device=device)``), and the last sum is
+    the lost row. None when the pattern has no chain or a hop refuses.
+    The caller checks the result against the fragment's hash."""
     present = tuple(present)
     with trace.span("offchain.repair", sys="offchain", row=row,
                     survivors=len(present), mode="symbols"):
@@ -585,8 +576,8 @@ def repair_via_symbols(k: int, m: int, present, row: int, helpers, *,
             return None
         acc = None
         for fragment, coeff in zip(helpers, coeffs):
-            acc = repair_symbol(fragment, coeff, acc, codec=codec,
-                                engine=engine, tenant=tenant)
+            acc = repair_symbol(k, m, fragment, coeff, acc, codec=codec,
+                                engine=engine, tenant=tenant, device=device)
             if acc is None:
                 return None
         return acc.tobytes()

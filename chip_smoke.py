@@ -1112,7 +1112,7 @@ def agents_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
           f"agents: {codec.warm_hits - hits} warm hits, not {len(lost)}")
     symbol_codec = oc.host_codec(cfg.k, cfg.m, "regen", device=dev)
     symbols = repaired(lambda present, surv, row: oc.repair_via_symbols(
-        cfg.k, cfg.m, present, row, surv, codec=symbol_codec))
+        cfg.k, cfg.m, present, row, surv, codec=symbol_codec, device=dev))
     sync()
     phase_s = time.perf_counter() - t_phase
     launches = counts()

@@ -85,6 +85,12 @@ def test_upload_prove_verify_on_the_card(cuda_device, routed):
             2, 1, [store[hs[1]], store[hs[2]]], (1, 2), 0, engine=eng,
             device=cuda_device)
         assert hashing.fragment_hash(rebuilt) == hs[0]
+        # and by repair symbols, folded on the card by default
+        before = rs_kernel.gf_apply.launches
+        folded = offchain.repair_via_symbols(
+            2, 1, (1, 2), 0, [store[hs[1]], store[hs[2]]], engine=eng,
+            device=cuda_device)
+        assert folded == rebuilt and rs_kernel.gf_apply.launches > before
     finally:
         if eng is not None:
             eng.close()
