@@ -156,17 +156,22 @@ class StoragePipeline(nn.Module):
                     data, tenant=tenant)).to(self.device)
             return self._encode(data)
 
-    def _encode(self, data: torch.Tensor) -> torch.Tensor:
+    def _encode(self, data: torch.Tensor, staged=None) -> torch.Tensor:
+        """[B, k, n] data rows -> [B, k+m, n] fragments on the data's
+        device. ``staged``: the (parity tables, XOR op list) staged on
+        that device when it is not the pipeline's (a mesh shard's
+        columns, ``parallel/mesh.py``); n may be any column count."""
         cfg = self.config
-        b = data.shape[0]
-        out = torch.empty((b, cfg.k + cfg.m, cfg.fragment_size),
-                          dtype=torch.uint8, device=self.device)
+        b, k, n = data.shape
+        tabs, ops = staged or (self.parity_tables,
+                               getattr(self, "parity_ops", None))
+        out = torch.empty((b, k + cfg.m, n), dtype=torch.uint8,
+                          device=data.device)
         if uses_xor(self.strategy, self.parity_sched, data.shape):
-            rs_xor.gf_xor(self.parity_sched, self.parity_ops, data,
-                          out=out[:, cfg.k:], sys_out=out[:, :cfg.k])
+            rs_xor.gf_xor(self.parity_sched, ops, data, out=out[:, k:],
+                          sys_out=out[:, :k])
         else:
-            gf_apply(self.parity_tables, data, out=out[:, cfg.k:],
-                     sys_out=out[:, :cfg.k])
+            gf_apply(tabs, data, out=out[:, k:], sys_out=out[:, :k])
         return out
 
     def tag_step(self, fragments: torch.Tensor, fragment_ids=None,

@@ -7,6 +7,8 @@ below 2^62 and is reduced with one ``%``. Field elements are stored as
 ``int32`` tensors (every element is below 2^31); each function here
 accepts int32 or int64 and returns int64. Raw 32-bit words (PRF
 output, hash words) travel as int64 in [0, 2^32) — see ``u32``.
+``psum_mod`` sums partials across the devices of a mesh axis, and across
+processes through ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -61,6 +63,31 @@ def summod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def dotmod(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Modular dot product sum_i a_i * b_i along a dim (broadcasting)."""
     return summod(mulmod(a, b), dim=dim)
+
+
+def psum_mod(parts, group=None) -> torch.Tensor:
+    """Exact modular sum of same-shaped partials in [0, p) across a mesh
+    axis: the counterpart of the TPU package's ``psum_mod``.
+
+    ``parts``: this process's partials, which may lie on several devices;
+    they are gathered to the first one's device and summed there as
+    int64. ``group``: a ``torch.distributed`` process group whose other
+    members hold the axis's other partials; the int64 sum is then
+    ``all_reduce``d (SUM) over it. The result, ``% P``, is int64 on the
+    first partial's device, on every member of the group.
+
+    The TPU package splits each value into 16-bit limbs so that its
+    uint32 psums cannot overflow. Here no split is needed: an int64 sum
+    of fewer than 2^32 values below 2^31 stays below 2^63, and the
+    result is the same field element."""
+    parts = list(parts)
+    dev = parts[0].device
+    total = torch.stack([p.to(dev, torch.int64) for p in parts]).sum(dim=0)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total % P
 
 
 def invmod(a: int) -> int:

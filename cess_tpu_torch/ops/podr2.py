@@ -159,9 +159,16 @@ def prf_elems(prf_key: torch.Tensor, fragment_id, n: int,
                       limbs)[0]
 
 
-def tag_fragments(key: Podr2Key, ids, fragments: torch.Tensor) -> torch.Tensor:
+def tag_fragments(key: Podr2Key, ids, fragments: torch.Tensor,
+                  first_block: int | None = None) -> torch.Tensor:
     """Tags [F, blocks, limbs] int32 of fragments [F, bytes] uint8 with
-    ids [F] or [F, 2], on the fragments' device."""
+    ids [F] or [F, 2], on the fragments' device.
+
+    ``first_block``: the fragments are a byte shard of longer fragments
+    whose first block has this index; the PRF is evaluated at the
+    shard's own block indices, passed to ``prf_blocks`` explicitly. The
+    PRF is pointwise in the block index, so the tags equal the matching
+    slice of the whole fragments' tags."""
     dev = fragments.device
     key = key.to(dev)
     f, nbytes = fragments.shape
@@ -170,7 +177,9 @@ def tag_fragments(key: Podr2Key, ids, fragments: torch.Tensor) -> torch.Tensor:
     ids = fragment_ids(ids, dev)
     if ids.shape[0] != f:
         raise ValueError(f"{ids.shape[0]} ids for {f} fragments")
-    prf_lm = prf_blocks(key.prf_key, ids, None, blocks, key.limbs,
+    at = None if first_block is None else torch.arange(
+        first_block, first_block + blocks, dtype=torch.int64, device=dev)
+    prf_lm = prf_blocks(key.prf_key, ids, at, blocks, key.limbs,
                         limb_major=True)
     return podr2_tag(key.weights, prf_lm,
                      fragments.reshape(f, blocks, lanes))

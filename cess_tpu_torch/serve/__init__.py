@@ -8,13 +8,17 @@ gates, explicit backpressure, and the ``cess_engine_*`` counters
 synchronize before their futures resolve. ``stream.py``: the
 double-buffered ingest of host segments through the pipeline's fused
 encode + tag, staged through pinned host buffers on a side copy stream.
-The direct synchronous path stays the default wherever no engine is
-configured.
+``pool.py``: the multi-device serving plane, a ``DevicePool`` of
+per-device worker lanes the engine spreads its batches over
+(``make_engine(pool=...)``), and the lanes' mesh for the stream
+(``StreamingIngest(pool=...)``). The direct synchronous path stays the
+default wherever no engine is configured.
 """
 from .engine import EngineFuture, SubmissionEngine, make_engine
 from .policy import (CLASS_PRIORITY, CLASSES, AdmissionPolicy, EngineClosed,
                      EngineError, EngineSaturated, EngineShed, EngineTimeout,
                      EngineUnavailable)
+from .pool import DeviceLane, DevicePool
 from .stats import EngineStats, StreamStats
 from .stream import StreamingIngest
 
@@ -22,6 +26,8 @@ __all__ = [
     "AdmissionPolicy",
     "CLASSES",
     "CLASS_PRIORITY",
+    "DeviceLane",
+    "DevicePool",
     "EngineClosed",
     "EngineError",
     "EngineFuture",

@@ -97,10 +97,25 @@ dispatch in ``torch.profiler.record_function("cess:<op>")``. Breaker
 trips and recoveries, saturation and a batcher escape are noted in the
 flight journal (``obs/flight.py``) with the engine lock released.
 
+Device pool (opt-in, ``pool=``, ``serve/pool.py``). The batcher hands
+each drained batch to the pool, whose chosen lane runs it on its own
+device and CUDA stream with the lane's breakers, codec and AuditBackend
+views and its own slice of the program cache (``_key`` grows a
+``("device", i)`` component; degraded keys stay device-free). A denied
+or failed lane hands the batch whole to a sibling (``pool.requeue``)
+before any salvage; the fault sites ``engine.dispatch.d<i>`` and
+``engine.dispatch.<cls>.d<i>`` sit beside ``engine.dispatch`` on a
+lane's attempt. The engine keeps one device lock per device, held around
+every batch on it and by ``warm_repair``'s graph captures (which hold
+them all): lanes on one device take turns, lanes on different devices do
+not wait for each other. A tensor member's result lies on the device of
+the lane that computed it. A card member is never computed on the host:
+with every lane sick it is refused as on the single-device path.
+
 Every submit takes the TPU engine's ``tenant=`` tag; the port has no SLO
 board yet, so it is accepted and ignored. The SLO and adaptive planes,
-admission, the device pool and profiling are not ported and the
-constructor takes no argument for them.
+admission and profiling are not ported and the constructor takes no
+argument for them.
 """
 from __future__ import annotations
 
@@ -231,7 +246,8 @@ class SubmissionEngine:
     and/or an ``AuditBackend`` (``ops.audit_backend``) directly; both
     must live on one device, the engine's. ``resilience``: an optional
     ``resilience.ResilienceConfig``; ``tracer``: an optional
-    ``obs.trace.Tracer`` (else the process-armed one, if any)."""
+    ``obs.trace.Tracer`` (else the process-armed one, if any); ``pool``:
+    an optional ``serve.pool.DevicePool`` to spread batches over."""
 
     # op class -> which backend's breaker gates it
     _BACKEND_OF = {"encode": "codec", "repair": "codec",
@@ -240,7 +256,7 @@ class SubmissionEngine:
 
     def __init__(self, codec=None, audit=None,
                  policy: AdmissionPolicy | None = None,
-                 resilience=None, tracer=None):
+                 resilience=None, tracer=None, pool=None):
         if codec is None and audit is None:
             raise ValueError("engine needs a codec and/or audit backend")
         devices = {g.device for g in (codec, audit) if g is not None}
@@ -282,12 +298,22 @@ class SubmissionEngine:
             c: collections.deque() for c in CLASSES}
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
-        # held around every batch and around warm_repair's graph
-        # captures: a capture must not overlap the batcher's launches
-        self._device_mu = threading.Lock()
+        # one lock a device, held around every batch on it and (all of
+        # them) around warm_repair's graph captures: a capture must not
+        # overlap a launch on its card
+        self._device_mu = threading.Lock()      # the engine device's
+        self._device_locks = {self.device: self._device_mu}
+        for dev in [] if pool is None else pool.devices():
+            self._device_locks.setdefault(dev, threading.Lock())
         self._closed = False
         self._flushing = 0       # active flush() calls force draining
         self._inflight = 0
+        # the multi-device serving plane (serve/pool.py, opt-in): bound
+        # after the monitors exist, so each lane builds its breakers
+        self.pool = pool
+        self.stats.pool = pool
+        if pool is not None:
+            pool.bind(self)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="cess-submission-engine")
         self._thread.start()
@@ -528,47 +554,63 @@ class SubmissionEngine:
         ``_op_repair`` reads; with a regenerating codec the helper
         folds of every coefficient the single-missing patterns need are
         warmed too (``RegenCodec.warm_fold``). Captures run on this
-        thread while the batcher is held between batches; no other
-        thread should launch work on the card meanwhile (CUDA's global
-        capture mode)."""
+        thread while the batcher and every lane are held between batches;
+        no other thread should launch work on the card meanwhile (CUDA's
+        global capture mode). With a pool, every lane's slice of the
+        cache is warmed too: its codec view prepares the same programs
+        on its device, under the lane's keys."""
         self._need_codec()
-        warm = getattr(self.codec, "warm_reconstruct", None)
         patterns = [(tuple(int(i) for i in p), tuple(int(i) for i in mi))
                     for p, mi in patterns]
-        with self._device_mu, self._device_scope():
-            for present, missing in patterns:
-                for b in buckets:
-                    bucket = bucket_rows(b)
-                    shape = (bucket, len(present), n)
-                    meta = self._codec_meta(self.codec, "repair", present,
-                                            missing, shape)
-                    if warm is not None:
-                        warm(present, missing, shape)
-                    self.programs.get(
-                        ("repair", present, missing, n, bucket) + meta,
-                        lambda p=present, mi=missing:
-                            (lambda a: self.codec.reconstruct(a, p, mi)))
-            warm_fold = getattr(self.codec, "warm_fold", None)
-            if warm_fold is None:
-                return
-            from ..ops import regen
+        # the engine's own programs, then each lane's
+        owners = [(self.codec, None)] + [
+            (lane.codec, lane) for lane in
+            (self.pool.lanes if self.pool is not None else ())]
+        with contextlib.ExitStack() as held:
+            for dev in sorted(self._device_locks, key=str):
+                held.enter_context(self._device_locks[dev])
+            for codec, lane in owners:
+                with self._device_scope(codec.device):
+                    self._warm_codec(codec, lane, patterns, n, buckets)
 
-            coeffs: set[int] = set()
-            for present, missing in patterns:
-                if len(missing) == 1:
-                    coeffs.update(regen.repair_coeffs(
-                        self.codec.k, self.codec.m, present, missing))
-            coeffs.discard(0)
-            for c in sorted(coeffs):
-                for b in buckets:
-                    bucket = bucket_rows(b)
-                    meta = self._codec_meta(self.codec, "symbol", (c,), (),
-                                            (bucket, 2, n))
-                    warm_fold(c, (bucket, 2, n))
-                    self.programs.get(
-                        ("symbol", c, n, bucket) + meta,
-                        lambda cc=c:
-                            (lambda a: self.codec.fold_symbol(a, cc)))
+    def _warm_codec(self, codec, lane, patterns, n: int, buckets) -> None:
+        """``warm_repair`` for one codec: the engine's (``lane`` None) or a
+        lane's view, under the keys ``_op_repair`` reads for it."""
+        warm = getattr(codec, "warm_reconstruct", None)
+        for present, missing in patterns:
+            for b in buckets:
+                bucket = bucket_rows(b)
+                shape = (bucket, len(present), n)
+                meta = self._codec_meta(codec, "repair", present, missing,
+                                        shape)
+                if warm is not None:
+                    warm(present, missing, shape)
+                self.programs.get(
+                    self._key(("repair", present, missing, n, bucket), False,
+                              lane) + meta,
+                    lambda c=codec, p=present, mi=missing:
+                        (lambda a: c.reconstruct(a, p, mi)))
+        warm_fold = getattr(codec, "warm_fold", None)
+        if warm_fold is None:
+            return
+        from ..ops import regen
+
+        coeffs: set[int] = set()
+        for present, missing in patterns:
+            if len(missing) == 1:
+                coeffs.update(regen.repair_coeffs(codec.k, codec.m, present,
+                                                  missing))
+        coeffs.discard(0)
+        for c in sorted(coeffs):
+            for b in buckets:
+                bucket = bucket_rows(b)
+                meta = self._codec_meta(codec, "symbol", (c,), (),
+                                        (bucket, 2, n))
+                warm_fold(c, (bucket, 2, n))
+                self.programs.get(
+                    self._key(("symbol", c, n, bucket), False, lane) + meta,
+                    lambda cd=codec, cc=c:
+                        (lambda a: cd.fold_symbol(a, cc)))
 
     def attach_stream(self, stream_stats) -> None:
         """Register a streaming ingest's StreamStats so its stage
@@ -631,6 +673,10 @@ class SubmissionEngine:
             self._closed = True
             self._cond.notify_all()
         self._thread.join(timeout)
+        if self.pool is not None:
+            # the batcher drained what it will drain; the lane workers
+            # finish their pending batches, then stop
+            self.pool.close(timeout)
         if self._thread.is_alive():
             with self._cond:
                 for cls, q in self._queues.items():
@@ -686,9 +732,10 @@ class SubmissionEngine:
                              f"{tuple(arr.shape)}")
         return arr, squeeze
 
-    def _device_scope(self):
-        return torch.cuda.device(self.device) \
-            if self.device.type == "cuda" else contextlib.nullcontext()
+    def _device_scope(self, device: torch.device | None = None):
+        device = self.device if device is None else device
+        return torch.cuda.device(device) \
+            if device.type == "cuda" else contextlib.nullcontext()
 
     def _tracer_now(self):
         """The engine's own tracer, else the process-armed one, else
@@ -765,19 +812,35 @@ class SubmissionEngine:
                             self._cond.notify_all()
                             return
                         self._cond.wait(self._wake_timeout(now))
+                pool = self.pool
+                if pool is not None:
+                    # the pool's chosen lane runs the batch and settles
+                    # the in-flight count through _batch_done
+                    try:
+                        pool.dispatch(batch)
+                    except BaseException as e:
+                        _flight.note("engine", "escape", error=repr(e))
+                        self._batch_done()
+                        raise
+                    continue
                 try:
                     if batch:
-                        with self._device_mu:
-                            self._run_batch(batch)
+                        self._run_batch(batch)
                 except BaseException as e:
                     # member failures are settled inside _run_batch; an
                     # error escaping it kills the batcher: journal it
                     _flight.note("engine", "escape", error=repr(e))
                     raise
                 finally:
-                    with self._cond:
-                        self._inflight -= 1
-                        self._cond.notify_all()
+                    self._batch_done()
+
+    def _batch_done(self) -> None:
+        """Settle one drained batch's in-flight count: the batcher's
+        inline path, or a pool lane once the batch's futures are
+        settled."""
+        with self._cond:
+            self._inflight -= 1
+            self._cond.notify_all()
 
     def _expire(self, now: float) -> None:
         """Cancel EVERY queued request whose deadline passed, in every
@@ -880,34 +943,57 @@ class SubmissionEngine:
             return contextlib.nullcontext()
         return torch.profiler.record_function(f"cess:{op}")
 
-    def _wait_ready(self, batch: list[_Request]) -> None:
-        """The batch's stream waits on each CUDA member's submit event."""
+    def _wait_ready(self, batch: list[_Request], dev: torch.device) -> None:
+        """The batch's stream on ``dev`` waits on each CUDA member's
+        submit event."""
         events = [r.ready for r in batch if r.ready is not None]
-        if events:
-            stream = torch.cuda.current_stream(self.device)
+        if events and dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
             for e in events:
                 stream.wait_event(e)
 
-    def _run_batch(self, batch: list[_Request]) -> None:
-        """Run one coalesced batch. Without resilience an op failure
-        rejects every member's future with the op's error; with it the
-        batch is gated by its backend's breaker (an open one serves its
-        host members on the CPU reference and refuses its card members)
-        and a failure is salvaged member by member (``_salvage_batch``). A ``KernelBuildError`` is never salvaged,
-        degraded or counted against the breaker."""
+    def _run_batch(self, batch: list[_Request], lane=None,
+                   tried=None) -> bool:
+        """Run one coalesced batch under its device's lock. ``lane`` is
+        None on the single-device path; on the pool path it is the
+        ``DeviceLane`` whose worker runs the batch (on the lane's stream):
+        the lane's breakers gate it, it runs on the lane's device, and a
+        denied or failed lane hands it whole to a healthy sibling
+        (``tried``: the lanes that already failed it). Returns True when
+        the batch was handed off so: its futures are the sibling's to
+        settle.
+
+        Without resilience an op failure rejects every member's future
+        with the op's error; with it the batch is gated by its backend's
+        breaker (an open one serves its host members on the CPU reference
+        and refuses its card members) and a failure is salvaged member by
+        member (``_salvage_batch``). A ``KernelBuildError`` is never
+        handed off, salvaged, degraded or counted against a breaker."""
+        mu = self._device_mu if lane is None \
+            else self._device_locks[lane.device]
+        with mu:
+            return self._run_batch_locked(batch, lane, tried)
+
+    def _run_batch_locked(self, batch: list[_Request], lane, tried) -> bool:
         cls = batch[0].cls
         op = batch[0].key[0]
         runner = getattr(self, f"_op_{op}")
         res = self.resilience
-        mon = self.monitors.get(self._BACKEND_OF[op])
+        mons = self.monitors if lane is None else lane.monitors
+        mon = mons.get(self._BACKEND_OF[op])
+        if tried is None:
+            tried = set()
         degraded = res is not None and res.fallback and mon is not None \
             and not mon.allow()
+        if degraded and lane is not None \
+                and self.pool.requeue(batch, lane, tried):
+            return True
         if degraded:
             batch = self._refuse_card_members(batch, EngineUnavailable(
                 f"{self._BACKEND_OF[op]} breaker open: a payload on the "
                 "card is not served on the host"))
             if not batch:
-                return
+                return False
             res.stats.note_degraded(cls)
         backend = "cpu-fallback" if degraded else "primary"
         tracer = self._tracer_now()
@@ -928,28 +1014,36 @@ class SubmissionEngine:
                     (trace.NOOP_SPAN if tracer is None else tracer.start(
                         f"device.{op}", sys="device", parent=bspan,
                         current=True, op=op, degraded=degraded,
-                        backend=backend)):
+                        backend=backend,
+                        **({} if lane is None else {"device": lane.index}))):
                 if not degraded:
                     faults.inject("engine.dispatch")   # chaos seam
-                self._wait_ready(batch)
-                # the runner is a monkeypatch seam: called with the
-                # batch alone on the primary path
-                results, device_rows = runner(batch, True) if degraded \
-                    else runner(batch)
+                    if lane is not None:
+                        # one lane's seam, and one class's on one lane
+                        faults.inject(f"engine.dispatch.d{lane.index}")
+                        faults.inject(f"engine.dispatch.{cls}.d{lane.index}")
+                self._wait_ready(batch, self._batch_device(degraded, lane))
+                results, device_rows = self._call(runner, batch, degraded,
+                                                  lane)
         except Exception as e:        # op failure
             build = isinstance(e, _build.KernelBuildError)
             if mon is not None and not degraded and not build:
                 mon.record_error()
             bspan.set(error=repr(e)).finish()
+            if lane is not None and not degraded and not build \
+                    and self.pool.requeue(batch, lane, tried):
+                # the batch moves WHOLE to a healthy sibling; salvage runs
+                # only once every sibling has failed it
+                return True
             if res is not None and not build:
-                self._salvage_batch(runner, batch, e, mon, degraded)
-                return
+                self._salvage_batch(runner, batch, e, mon, degraded, lane)
+                return False
             with self._lock:
                 self.stats.classes[cls].failed += len(batch)
             for r in batch:
                 r.future._reject(e)
                 r.span.set(outcome="error", error=repr(e)).finish()
-            return
+            return False
         if mon is not None and not degraded:
             mon.record_success(time.monotonic() - t0)
         self._account_batch(batch, device_rows, bspan)
@@ -958,10 +1052,20 @@ class SubmissionEngine:
             r.future._resolve(out)
             if r.span is not trace.NOOP_SPAN:
                 r.span.set(outcome="ok").finish()
+        return False
+
+    @staticmethod
+    def _call(runner, batch: list[_Request], degraded: bool, lane):
+        """Run ``runner`` on ``batch``. The runner is a monkeypatch seam:
+        on the single-device primary path it is called with the batch
+        alone."""
+        if lane is not None:
+            return runner(batch, degraded, lane)
+        return runner(batch, True) if degraded else runner(batch)
 
     def _salvage_batch(self, runner, batch: list[_Request],
                        primary_exc: BaseException, mon,
-                       degraded: bool) -> None:
+                       degraded: bool, lane=None) -> None:
         """A batch failed with resilience configured: re-run each member
         ALONE once (a poisoned request must not fail its batch-mates),
         then, if its attempt on the card failed and fallback is allowed,
@@ -987,9 +1091,10 @@ class SubmissionEngine:
                 try:
                     if not degraded:
                         faults.inject("engine.dispatch")
-                    self._wait_ready([r])
-                    out, rows = runner([r], True) if degraded \
-                        else runner([r])
+                        if lane is not None:
+                            faults.inject(f"engine.dispatch.d{lane.index}")
+                    self._wait_ready([r], self._batch_device(degraded, lane))
+                    out, rows = self._call(runner, [r], degraded, lane)
                 except Exception as e:  # noqa: BLE001 (member isolation)
                     exc = e
                     if mon is not None and not degraded \
@@ -1007,7 +1112,7 @@ class SubmissionEngine:
                                             sys="resilience", parent=r.span,
                                             current=True, cls=cls,
                                             backend="cpu-fallback")):
-                        out, rows = runner([r], True)
+                        out, rows = self._call(runner, [r], True, lane)
                     res.stats.note_fallback(cls)
                 except Exception as e:  # noqa: BLE001 (reported below)
                     exc = e
@@ -1068,28 +1173,51 @@ class SubmissionEngine:
     # Each runs ``(batch, degraded=False)``; a degraded batch assembles
     # its inputs on the host and runs the CPU reference backends.
 
-    def _sync(self) -> None:
-        """Wait for the work enqueued so far on the batch's stream."""
-        if self.device.type == "cuda":
+    @staticmethod
+    def _sync(dev: torch.device) -> None:
+        """Wait for the work enqueued so far on the batch's stream (the
+        calling thread's current stream on ``dev``: the batcher's default
+        stream, or a lane's own)."""
+        if dev.type == "cuda":
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            done.record(torch.cuda.current_stream(dev))
             done.synchronize()
 
-    def _batch_device(self, degraded: bool) -> torch.device:
-        return torch.device("cpu") if degraded else self.device
+    def _home(self, lane) -> torch.device:
+        """Where a batch runs when not degraded, and where a tensor
+        member's result lies: the engine's device, or the lane's."""
+        return self.device if lane is None else lane.device
 
-    def _rs_backend(self, degraded: bool):
-        return self._fallback_codec if degraded else self.codec
+    def _batch_device(self, degraded: bool, lane=None) -> torch.device:
+        return torch.device("cpu") if degraded else self._home(lane)
 
-    def _audit_backend(self, degraded: bool):
-        return self._fallback_audit if degraded else self.audit
+    def _rs_backend(self, degraded: bool, lane=None):
+        """The codec serving this batch: the CPU reference when degraded,
+        else the lane's codec view on the pool path (the port's codecs
+        are pinned to a device; serve/pool.py), else the engine's."""
+        if degraded:
+            return self._fallback_codec
+        return self.codec if lane is None else lane.codec
+
+    def _audit_backend(self, degraded: bool, lane=None):
+        """The AuditBackend serving this batch, as ``_rs_backend``."""
+        if degraded:
+            return self._fallback_audit
+        return self.audit if lane is None else lane.audit
 
     @staticmethod
-    def _key(key: tuple, degraded: bool) -> tuple:
+    def _key(key: tuple, degraded: bool, lane=None) -> tuple:
         """Degraded programs cache under their own keys: a breaker flip
         never hands a card program (a CUDA graph replay from
-        ``warm_repair``) a host batch, nor a host program a card one."""
-        return key + ("cpu-fallback",) if degraded else key
+        ``warm_repair``) a host batch, nor a host program a card one. On
+        the pool path a key grows the lane's ``("device", i)`` component
+        for the same reason (degraded keys stay device-free: the CPU
+        reference's program is shared by every lane)."""
+        if degraded:
+            return key + ("cpu-fallback",)
+        if lane is not None:
+            return key + (("device", lane.index),)
+        return key
 
     def _rows(self, arrs: list, rows: int, dtype,
               dev: torch.device) -> torch.Tensor:
@@ -1123,27 +1251,29 @@ class SubmissionEngine:
             out[i, :a.shape[0]].copy_(torch.as_tensor(a))
         return out
 
-    def _as_member(self, r: _Request, piece):
-        """A result piece in the member's domain: a tensor on the
-        engine's device for a tensor member, numpy for a numpy one."""
+    @staticmethod
+    def _as_member(r: _Request, piece, home: torch.device):
+        """A result piece in the member's domain: a tensor on ``home``
+        (``_home``) for a tensor member, numpy for a numpy one."""
         if r.device:
-            return torch.as_tensor(piece).to(self.device)
+            return torch.as_tensor(piece).to(home)
         if isinstance(piece, torch.Tensor):
             return piece.cpu().numpy()
         return piece
 
-    def _split_rows(self, batch: list[_Request], out) -> list:
+    def _split_rows(self, batch: list[_Request], out, lane=None) -> list:
         """Slice a batch result (a tensor, or numpy from a host
         reference) back per request in each member's domain; an
         all-host batch is fetched once. A result on the card is
         synchronized before any future resolves (module docstring)."""
         if isinstance(out, torch.Tensor) and out.is_cuda:
-            self._sync()
+            self._sync(out.device)
             if not any(r.device for r in batch):
                 out = out.cpu().numpy()
+        home = self._home(lane)
         results, off = [], 0
         for r in batch:
-            piece = self._as_member(r, out[off:off + r.rows])
+            piece = self._as_member(r, out[off:off + r.rows], home)
             results.append(piece[0] if r.squeeze else piece)
             off += r.rows
         return results
@@ -1159,28 +1289,28 @@ class SubmissionEngine:
             return ()
         return meta(kind, present=present, missing=missing, shape=shape)
 
-    def _op_encode(self, batch, degraded=False):
-        codec = self._rs_backend(degraded)
+    def _op_encode(self, batch, degraded=False, lane=None):
+        codec = self._rs_backend(degraded, lane)
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
         data = self._rows([r.arrays["data"] for r in batch], bucket,
-                          torch.uint8, self._batch_device(degraded))
+                          torch.uint8, self._batch_device(degraded, lane))
         _, k, n = data.shape
         meta = self._codec_meta(codec, "encode", shape=(bucket, k, n))
         prog = self.programs.get(
-            self._key(("encode", k, n, bucket), degraded) + meta,
+            self._key(("encode", k, n, bucket), degraded, lane) + meta,
             lambda: codec.encode)
         out = prog(data)[:total]
-        return self._split_rows(batch, out), bucket
+        return self._split_rows(batch, out, lane), bucket
 
-    def _op_repair(self, batch, degraded=False):
-        codec = self._rs_backend(degraded)
+    def _op_repair(self, batch, degraded=False, lane=None):
+        codec = self._rs_backend(degraded, lane)
         kind = batch[0].key[1]
         aux = batch[0].aux
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
         surv = self._rows([r.arrays["survivors"] for r in batch], bucket,
-                          torch.uint8, self._batch_device(degraded))
+                          torch.uint8, self._batch_device(degraded, lane))
         n = surv.shape[2]
         if kind == "reconstruct":
             present, missing = aux["present"], aux["missing"]
@@ -1188,28 +1318,30 @@ class SubmissionEngine:
                                     (bucket, len(present), n))
             prog = self.programs.get(
                 self._key(("repair", present, missing, n, bucket),
-                          degraded) + meta,
+                          degraded, lane) + meta,
                 lambda: (lambda a: codec.reconstruct(a, present, missing)))
         elif kind == "symbol":
             coeff = aux["coeff"]
             meta = self._codec_meta(codec, "symbol", (coeff,), (),
                                     (bucket, 2, n))
             prog = self.programs.get(
-                self._key(("symbol", coeff, n, bucket), degraded) + meta,
+                self._key(("symbol", coeff, n, bucket), degraded,
+                          lane) + meta,
                 lambda: (lambda a: codec.fold_symbol(a, coeff)))
         else:
             present = aux["present"]
             meta = self._codec_meta(codec, "decode", present, (),
                                     (bucket, len(present), n))
             prog = self.programs.get(
-                self._key(("decode", present, n, bucket), degraded) + meta,
+                self._key(("decode", present, n, bucket), degraded,
+                          lane) + meta,
                 lambda: (lambda a: codec.decode_data(a, present)))
         out = prog(surv)[:total]
-        return self._split_rows(batch, out), bucket
+        return self._split_rows(batch, out, lane), bucket
 
-    def _op_tag(self, batch, degraded=False):
-        audit = self._audit_backend(degraded)
-        dev = self._batch_device(degraded)
+    def _op_tag(self, batch, degraded=False, lane=None):
+        audit = self._audit_backend(degraded, lane)
+        dev = self._batch_device(degraded, lane)
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
         ids = self._rows([r.arrays["ids"] for r in batch], bucket,
@@ -1217,19 +1349,19 @@ class SubmissionEngine:
         frags = self._rows([r.arrays["fragments"] for r in batch], bucket,
                            torch.uint8, dev)
         prog = self.programs.get(
-            self._key(("tag", frags.shape[1], bucket), degraded),
+            self._key(("tag", frags.shape[1], bucket), degraded, lane),
             lambda: audit.tag_fragments)
         out = prog(ids, frags)[:total]
-        return self._split_rows(batch, out), bucket
+        return self._split_rows(batch, out, lane), bucket
 
     @staticmethod
     def _round_tensors(aux: dict, dev) -> tuple[torch.Tensor, torch.Tensor]:
         return (torch.as_tensor(aux["idx"]).to(dev),
                 torch.as_tensor(aux["nu"]).to(dev))
 
-    def _op_verify_batch(self, batch, degraded=False):
-        audit = self._audit_backend(degraded)
-        dev = self._batch_device(degraded)
+    def _op_verify_batch(self, batch, degraded=False, lane=None):
+        audit = self._audit_backend(degraded, lane)
+        dev = self._batch_device(degraded, lane)
         aux = batch[0].aux
         total = sum(r.rows for r in batch)
         bucket = bucket_rows(total)
@@ -1247,18 +1379,19 @@ class SubmissionEngine:
                                                       nu, u, s)
 
         prog = self.programs.get(
-            self._key(("verify_batch", batch[0].key, bucket), degraded),
+            self._key(("verify_batch", batch[0].key, bucket), degraded,
+                      lane),
             build)
         out = prog(ids, mu, sigma)[:total]
-        return self._split_rows(batch, out), bucket
+        return self._split_rows(batch, out, lane), bucket
 
     # The stacked classes call ``podr2`` itself with a leading mission
     # axis, as the TPU engine's stacked runners do: they cross no
     # ``podr2.<op>`` fault site of the gate, only ``engine.dispatch``.
 
-    def _op_verify_agg(self, batch, degraded=False):
-        audit = self._audit_backend(degraded)
-        dev = self._batch_device(degraded)
+    def _op_verify_agg(self, batch, degraded=False, lane=None):
+        audit = self._audit_backend(degraded, lane)
+        dev = self._batch_device(degraded, lane)
         aux = batch[0].aux
         fb = bucket_rows(max(r.rows for r in batch))
         rb = bucket_rows(len(batch))
@@ -1278,12 +1411,13 @@ class SubmissionEngine:
                 audit.key, i, num_blocks, idx, nu, rr, u, s)
 
         prog = self.programs.get(
-            self._key(("verify_agg", batch[0].key, fb, rb), degraded), build)
+            self._key(("verify_agg", batch[0].key, fb, rb), degraded, lane),
+            build)
         ok = prog(ids, rs_, mu, sigma).cpu()
         return [bool(ok[i]) for i in range(len(batch))], rb * fb
 
-    def _op_prove(self, batch, degraded=False):
-        dev = self._batch_device(degraded)
+    def _op_prove(self, batch, degraded=False, lane=None):
+        dev = self._batch_device(degraded, lane)
         aux = batch[0].aux
         fb = bucket_rows(max(r.rows for r in batch))
         rb = bucket_rows(len(batch))
@@ -1309,16 +1443,18 @@ class SubmissionEngine:
                                                           sectors)
 
         prog = self.programs.get(
-            self._key(("prove", batch[0].key, fb, rb), degraded), build)
+            self._key(("prove", batch[0].key, fb, rb), degraded, lane),
+            build)
         mu, sigma = prog(sel, tsel, rs_)
         if mu.is_cuda:
-            self._sync()
+            self._sync(mu.device)
+        home = self._home(lane)
         host = None
         results = []
         for i, r in enumerate(batch):
             if r.device:
-                results.append((self._as_member(r, mu[i]),
-                                self._as_member(r, sigma[i])))
+                results.append((self._as_member(r, mu[i], home),
+                                self._as_member(r, sigma[i], home)))
                 continue
             if host is None:
                 host = (mu.cpu().numpy(), sigma.cpu().numpy())
@@ -1330,7 +1466,7 @@ def make_engine(k: int | None = None, m: int | None = None, *,
                 rs_backend: str | None = None, strategy: str | None = None,
                 podr2_key=None, audit_backend: str | None = None,
                 policy: AdmissionPolicy | None = None, resilience=None,
-                tracer=None) -> SubmissionEngine:
+                tracer=None, pool=None) -> SubmissionEngine:
     """Build an engine over the two gates.
 
     k/m select the ErasureCodec geometry (None: no codec, the engine
@@ -1346,7 +1482,12 @@ def make_engine(k: int | None = None, m: int | None = None, *,
     saturation, member isolation, breaker-gated CPU degradation; the
     module doc's Resilience paragraph). tracer: an optional
     ``obs.trace.Tracer`` for request, batch and device spans; without
-    one the engine still honours a process-armed tracer.
+    one the engine still honours a process-armed tracer. pool: the
+    multi-device serving plane (``serve/pool.py``): a built
+    ``DevicePool``, True (every CUDA device; raises without a card) or a
+    lane count N (the first N CUDA devices, or N ``"cpu"`` lanes when
+    the gates are on the CPU); None, 0 and False: the single-device
+    path, unchanged.
     """
     codec = None
     if k is not None:
@@ -1354,5 +1495,14 @@ def make_engine(k: int | None = None, m: int | None = None, *,
     audit = None
     if podr2_key is not None:
         audit = ab.make_audit_backend(podr2_key, audit_backend)
+    if pool and not hasattr(pool, "bind"):
+        from .pool import DevicePool
+
+        gate = codec if codec is not None else audit
+        if pool is not True and gate is not None \
+                and gate.device.type == "cpu":
+            pool = DevicePool(["cpu"] * int(pool))
+        else:
+            pool = DevicePool(n=None if pool is True else int(pool))
     return SubmissionEngine(codec, audit, policy, resilience=resilience,
-                            tracer=tracer)
+                            tracer=tracer, pool=pool or None)

@@ -3,9 +3,10 @@
 The port's copy of ``cess_tpu/serve/stats.py`` under the same
 ``cess_engine_*`` names, with the resilience attachment (its snapshot
 under ``"resilience"``, its ``cess_resilience_*`` gauges merged into the
-metrics) and without the attachments of the planes the port does not
-have yet (SLO, adaptive control, device pool, profiling) or the
-``shed`` counter that only SLO-gated admission increments.
+metrics) and the device pool's (its snapshot under ``"devices"``, its
+``cess_engine_device_*`` gauges), and without the attachments of the
+planes the port does not have yet (SLO, adaptive control, profiling) or
+the ``shed`` counter that only SLO-gated admission increments.
 
 Everything here is updated under the engine lock (the batcher and the
 submitters hold it at every recording site), so the counters need no
@@ -125,6 +126,9 @@ class EngineStats:
         # the engine's resilience.ResilienceStats when it has a
         # ResilienceConfig: duck-typed (snapshot()/metrics())
         self.resilience = None
+        # the engine's serve.pool.DevicePool when it has one: the same
+        # duck-typed contract, the cess_engine_device_* family
+        self.pool = None
 
     def snapshot(self, queue_depths: dict[str, int] | None = None) -> dict:
         """JSON-shaped dump."""
@@ -150,6 +154,8 @@ class EngineStats:
             out["streams"] = [s.snapshot() for s in self.streams]
         if self.resilience is not None:
             out["resilience"] = self.resilience.snapshot()
+        if self.pool is not None:
+            out["devices"] = self.pool.snapshot()
         return out
 
     def metrics(self, queue_depths: dict[str, int] | None = None
@@ -172,6 +178,8 @@ class EngineStats:
                 out[f"cess_engine_stream_{name}"] = float(val)
         if self.resilience is not None:
             out.update(self.resilience.metrics())
+        if self.pool is not None:
+            out.update(self.pool.metrics())
         return out
 
     def histograms(self) -> dict[str, prom.Histogram]:

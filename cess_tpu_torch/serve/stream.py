@@ -42,6 +42,17 @@ program (``StoragePipeline.fused_program``) over host segments:
 On the CPU the program runs on the host tensors as they are: no pinned
 buffer, no side stream, no copy. Results equal the direct per-step
 path bit for bit on both MAC limb widths, ragged tail included.
+
+A mesh or a device pool takes over the device side, as in
+the TPU package: ``program``, ``put`` and ``put_ids`` override the
+program and the staging (``parallel/mesh.py`` ``stream_entry`` builds
+the three for a mesh), and ``pool=`` derives them from
+``DevicePool.stream_entry``, explicit overrides winning. The pinned
+staging stays: ``put`` receives the batch's pinned host chunk (its pad
+rows zeroed) and ``put_ids`` the batch's host ids; a pool's ``put``
+copies each lane's seg slice to the lane's device on the lane's stream.
+A mesh program's results are ``ShardedTensor``s, complete when drained;
+``ingest`` gathers them.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ import torch
 
 from ..obs import flight as _flight
 from ..obs import trace
+from ..parallel.mesh import ShardedTensor
 from ..resilience import faults
 from .stats import StreamStats
 
@@ -108,6 +120,24 @@ def _pad_host(chunk: torch.Tensor, rows: int) -> torch.Tensor:
         (rows - chunk.shape[0],) + tuple(chunk.shape[1:]))])
 
 
+def _completion(out: dict, dev: torch.device) -> list:
+    """Events that fire once a batch's results are complete: each
+    sharded result's own (one a card holding a piece), else one on the
+    pipeline device's current stream; none on the CPU."""
+    events = [ev for v in out.values() if isinstance(v, ShardedTensor)
+              for ev in v.record()]
+    if not events and dev.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append(ev)
+    return events
+
+
+def _whole(x) -> torch.Tensor:
+    """A batch result as one tensor (a sharded result gathered)."""
+    return x.gather() if isinstance(x, ShardedTensor) else x
+
+
 def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
     if a.shape[0] == rows:
         return a
@@ -125,23 +155,43 @@ class StreamingIngest:
     depth:    in-flight window (2 = double buffering: one batch's copy
               beside the previous batch's kernels).
     stats:    a StreamStats to count into (default: a new one).
+    program:  override the device program (fn(data, ids) -> dict with
+              "fragments" and "tags"): the mesh entry passes its sharded
+              step here.
+    put / put_ids: override the staging of a batch's [batch,
+              segment_size] host chunk and its host ids (default: the
+              ingest's own copy to the pipeline's device).
+    pool:     optional DevicePool: the (program, put, put_ids) of
+              ``pool.stream_entry``, each batch's seg axis spread over
+              the lanes; explicit overrides win; ``batch`` must be
+              divisible by the lane count.
     engine:   optional SubmissionEngine to export stats through.
     tenant:   the TPU package's per-tenant accounting tag; accepted and
               ignored until the port has an SLO board.
     """
 
     def __init__(self, pipeline, batch: int, *, depth: int = 2,
-                 stats=None, engine=None, tenant: str | None = None):
+                 program=None, put=None, put_ids=None, stats=None,
+                 engine=None, tenant: str | None = None, pool=None):
         if batch < 1 or depth < 1:
             raise ValueError(f"bad stream shape: batch={batch}, "
                              f"depth={depth}")
+        if pool is not None and program is None:
+            entry = pool.stream_entry(pipeline, batch)
+            program = entry["program"]
+            put = put or entry["put"]
+            put_ids = put_ids or entry["put_ids"]
         self.pipeline = pipeline
         self.batch = batch
         self.depth = depth
         self.stats = stats or StreamStats()
+        self._program = program
+        self._put = put
+        self._put_ids = put_ids
         self._engine = engine
         self._slots = None          # device buffers, one a slot, on the card
-        self._pinned = None         # pinned host buffers, made on first use
+        self._pinned = [None] * depth   # pinned host buffers, made on first use
+        self._filled = [0] * depth      # rows of each holding a chunk's data
         self._copy_stream = None
         if engine is not None:
             engine.attach_stream(self.stats)
@@ -200,17 +250,34 @@ class StreamingIngest:
                 or self._slots[0].device != dev:
             self._slots = [torch.empty(shape, dtype=torch.uint8, device=dev)
                            for _ in range(self.depth)]
-            self._pinned = [None] * self.depth
             self._copy_stream = torch.cuda.Stream(dev)
 
-    def _pinned_slot(self, slot: int) -> torch.Tensor:
-        """Slot ``slot``'s pinned host buffer, made when the first chunk
-        that does not lie in pinned memory needs it."""
-        if self._pinned[slot] is None:
-            self._pinned[slot] = torch.empty(self._slots[slot].shape,
-                                             dtype=torch.uint8,
+    def _pinned_slot(self, slot: int, seg: int) -> torch.Tensor:
+        """Slot ``slot``'s pinned host buffer of [batch, seg], made when
+        the first chunk that does not lie in pinned memory needs it."""
+        shape = (self.batch, seg)
+        if self._pinned[slot] is None or self._pinned[slot].shape != shape:
+            self._pinned[slot] = torch.empty(shape, dtype=torch.uint8,
                                              pin_memory=True)
+            self._filled[slot] = self.batch     # unwritten: not yet zero
         return self._pinned[slot]
+
+    def _host_chunk(self, chunk: torch.Tensor, n: int, real: int,
+                    cuda: bool) -> torch.Tensor:
+        """Batch ``n``'s [batch, seg] host chunk for a ``put``: on the
+        card, pinned (a full pinned chunk as it lies, else the slot's
+        pinned buffer with its pad rows zeroed, those an earlier chunk
+        left unzeroed only); on the CPU, padded."""
+        if not cuda:
+            return _pad_host(chunk, self.batch)
+        if real == self.batch and chunk.is_pinned() and chunk.is_contiguous():
+            return chunk
+        slot = n % self.depth
+        buf = self._pinned_slot(slot, chunk.shape[1])
+        buf[:real].copy_(chunk)
+        buf[real:self._filled[slot]].zero_()
+        self._filled[slot] = real
+        return buf
 
     def _stage(self, chunk: torch.Tensor, n: int, real: int) -> torch.Tensor:
         """Batch ``n``'s rows in its slot's device buffer: pinned rows go
@@ -221,7 +288,7 @@ class StreamingIngest:
         staged = self._slots[slot]
         src = chunk
         if not chunk.is_pinned():
-            src = self._pinned_slot(slot)[:real]
+            src = self._pinned_slot(slot, chunk.shape[1])[:real]
             src.copy_(chunk)
         with torch.cuda.stream(self._copy_stream):
             # only the real rows cross the bus; the ragged tail's pad
@@ -240,22 +307,21 @@ class StreamingIngest:
         rows = cfg.k + cfg.m
         dev = pipe.device
         cuda = dev.type == "cuda"
-        program = pipe.fused_program()
+        program = self._program or pipe.fused_program()
         st = self.stats
         t_run = time.perf_counter()
         inflight: collections.deque = collections.deque()
         run_span = trace.NOOP_SPAN
         batches = stalls = 0
-        if cuda:
+        if cuda and self._put is None:
             self._staging(dev, cfg.segment_size)
-            compute = torch.cuda.current_stream(dev)
 
         def drain_one():
             nonlocal stalls
             out, real, done = inflight.popleft()
             t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()
+            for ev in done:
+                ev.synchronize()
             stall = time.perf_counter() - t0
             st.stall_s += stall
             stalls += 1
@@ -283,31 +349,38 @@ class StreamingIngest:
                 real = chunk.shape[0]
                 pad = self.batch - real
                 st.padded_segments += pad
-                if fragment_ids is None:
+                if fragment_ids is not None:
+                    ids = _pad_rows(fragment_ids[seg_off:seg_off + real],
+                                    self.batch)
+                elif self._put_ids is not None:
+                    ids = np.arange(seg_off * rows,
+                                    (seg_off + self.batch) * rows,
+                                    dtype=np.int64)
+                else:
                     ids = torch.arange(seg_off * rows,
                                        (seg_off + self.batch) * rows,
                                        dtype=torch.int64, device=dev)
-                else:
-                    ids = torch.as_tensor(_pad_rows(
-                        fragment_ids[seg_off:seg_off + real],
-                        self.batch)).to(dev)
                 bspan = trace.NOOP_SPAN if tracer is None \
                     else tracer.start("stream.batch", sys="stream",
                                       parent=run_span, rows=real, pad=pad)
                 try:
                     t0 = time.perf_counter()
                     faults.inject("stream.h2d")        # chaos seam: staging
-                    seg_in = self._stage(chunk, batches, real) if cuda \
-                        else _pad_host(chunk, self.batch)
+                    if self._put is not None:
+                        seg_in = self._put(self._host_chunk(chunk, batches,
+                                                            real, cuda))
+                    elif cuda:
+                        seg_in = self._stage(chunk, batches, real)
+                    else:
+                        seg_in = _pad_host(chunk, self.batch)
+                    ids = self._put_ids(ids) if self._put_ids is not None \
+                        else torch.as_tensor(ids).to(dev)
                     h2d = time.perf_counter() - t0
                     st.h2d_s += h2d
                     t0 = time.perf_counter()
                     faults.inject("stream.dispatch")   # chaos seam: launch
                     out = program(seg_in, ids)
-                    done = None
-                    if cuda:
-                        done = torch.cuda.Event()
-                        done.record(compute)
+                    done = _completion(out, dev)
                 except BaseException as e:
                     # the batch span lands in the ring with its error and
                     # the journal notes the escape before it surfaces
@@ -339,5 +412,5 @@ class StreamingIngest:
         outs = list(self.run(segments, fragment_ids))
         if not outs:
             raise ValueError("empty segment stream")
-        return {"fragments": torch.cat([o["fragments"] for o in outs]),
-                "tags": torch.cat([o["tags"] for o in outs])}
+        return {name: torch.cat([_whole(o[name]) for o in outs])
+                for name in ("fragments", "tags")}

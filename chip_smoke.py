@@ -81,9 +81,36 @@ limit):
    (the engine's from its program cache); the line gives the upload's
    stages, the round direct and through the engine, the repairs and the
    peak device memory;
-8. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+8. mesh: the multi-device data plane (``cess_tpu_torch.parallel``) at
+   the main path's width, RS(2,1), the chain's key: the sharded step over
+   32 segments on ``make_mesh()`` (every card present) and on the card
+   listed 4 times as (4, 1), (2, 2) and (1, 4), fragments and tags
+   byte-equal to the forward, every verdict true, one fragment's byte
+   shard XORed with 0xA5 failing exactly that fragment; RS(4,8) "xor" on
+   8 segments over (2, 2), byte-equal to the dense forward (``gf_xor``
+   must launch); ``StreamingIngest(pool=DevicePool([card, card]))``
+   over 70 pinned segments, each batch byte-equal to the forward;
+   ``run_corpus`` over 1 GiB in batches of 24 (the last partial), every
+   batch verified; ``init_multihost`` on ``nccl`` (a world of one) with a
+   (1, 2) global mesh, its corpus count and ``psum_mod`` reduced by
+   NCCL's int64 ``all_reduce``. Counters zeroed just before and read
+   just after; then each kernel held against its plain version at the
+   phase's new shapes (byte-shard columns, PRF ranges at an offset); the
+   line gives the walls, the peak device memory and the launches;
+9. pool: the engine over ``DevicePool([card, card])`` at the main
+   path's width with resilience: encodes (staggered numpy), tags of the
+   96 fragments, one round's proofs and checks and, after
+   ``warm_repair``, 4 reconstructs, byte-equal to the direct path, both
+   lanes serving batches and warm hits on each lane; then the chaos
+   drill of ``tests/test_pool.py`` twice (lane 0 raising: its breaker
+   trips, lane 1 absorbs every batch by requeue, nothing degrades to the
+   CPU, a probe reaches lane 0, equal firings and placement logs);
+   counters zeroed just before and read just after; then each kernel
+   the engine ran held against its plain version at every shape in its
+   program cache;
+10. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-9. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+11. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -91,10 +118,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-10. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+12. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-11. kernel times beside the plain versions' times and each kernel's
+13. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -105,7 +132,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-12. with ``--parent DIR`` (another checkout of the repository, e.g. the
+14. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -120,8 +147,9 @@ wrapper in a CUDA graph and replays it.
 
 The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
-``launches_stream``, ``launches_chaos`` and ``launches_agents`` from
-phases 4, 5, 6 and 7); the last is ``{"ok": true, "device": {...}}``.
+``launches_stream``, ``launches_chaos``, ``launches_agents``,
+``launches_mesh`` and ``launches_pool`` from phases 4 to 9); the last
+is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
 """
@@ -351,8 +379,9 @@ def serve_kernel_checks(progs, pipe, dev, data, encs, ids, idx,
             held("prf_blocks", got, lambda s, e: prf.prf_plain(
                 key.prf_key, flat[s:e], idx, limbs), 64)
             done.append(f"prf_blocks {rb} x {fb} x {idx.numel()}")
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     return ", ".join(done)
 
 
@@ -1240,6 +1269,486 @@ def agents_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
     return launches
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
+               nseg: int = 32, corpus_segs: int = 64, corpus_batch: int = 24,
+               stream_segs: int = 70, stream_batch: int = 32,
+               xor_segs: int = 8, rendezvous: str | None = None) -> dict:
+    """The multi-device data plane (``cess_tpu_torch.parallel``) at the
+    main path's width: RS(2,1), 16 MiB segments, the chain's key
+    ``Podr2Key.generate(7)``. ``sharded_pipeline_step`` over 32 segments
+    (512 MiB, 96 fragments of 8 MiB) on ``make_mesh()`` (every card) and
+    on the card listed 4 times as (4, 1), (2, 2) and (1, 4): fragments
+    and tags byte-equal to ``StoragePipeline.forward``, every verdict
+    true, and with one fragment's byte shard that holds a challenged
+    block XORed with 0xA5 (the step's ``audit``) exactly that fragment
+    false; the RS(4,8) "xor"
+    pipeline on 8 segments over (2, 2), byte-equal to the dense forward;
+    ``StreamingIngest(pipe, 32, pool=DevicePool([card, card]))`` over 70
+    pinned segments, every batch byte-equal to the direct forward;
+    ``run_corpus`` in one process over a 1 GiB corpus (64 segments) in
+    batches of 24 (the last holds 16), verified == expected on every
+    batch; then ``init_multihost`` on ``nccl`` (a world of one at
+    ``127.0.0.1:<free port>``) with a (1, 2) ``global_mesh``: a corpus
+    batch through it (its verified count summed by NCCL's int64
+    ``all_reduce``) and ``psum_mod`` of the step's partials over the
+    world group equal to the in-process sum; ``destroy_process_group``.
+    Counters are zeroed just before and read just after; then each
+    kernel is held against its plain version at the phase's new shapes
+    (byte-shard columns, PRF ranges at an offset). A smaller ``cfg`` and
+    counts rehearse the phase on the CPU (with a ``file://``
+    ``rendezvous`` for ``gloo``). Returns the launches of the phase."""
+    import torch
+    import torch.distributed as dist
+    from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
+    from cess_tpu_torch.ops import pfield as pf
+    from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, rs_kernel
+    from cess_tpu_torch.ops import rs_xor
+    from cess_tpu_torch.parallel import (CorpusPlan, global_mesh,
+                                         init_multihost, make_mesh,
+                                         run_corpus, sharded_pipeline_step)
+    from cess_tpu_torch.serve import DevicePool, StreamingIngest
+
+    cfg = cfg or PipelineConfig()
+    cuda = dev.type == "cuda"
+    n, rows, blocks = cfg.fragment_size, cfg.k + cfg.m, cfg.blocks_per_fragment
+    key = podr2.Podr2Key.generate(7, device=dev)
+    pipe = StoragePipeline(cfg, podr2_key=key, device=dev)
+    segs = rand_bytes((nseg, cfg.segment_size), 110, dev)
+    ids = torch.arange(nseg * rows, device=dev).reshape(nseg, rows)
+    idx, nu = podr2.gen_challenge(b"chip-smoke-mesh-round", blocks,
+                                  device=dev)
+    # the references, computed before the counters are zeroed
+    ref = pipe(segs, ids)
+    cfgx = PipelineConfig(k=4, m=8, segment_size=cfg.segment_size,
+                          strategy="xor")
+    pipex = StoragePipeline(cfgx, podr2_key=key, device=dev)
+    dense = StoragePipeline(PipelineConfig(k=4, m=8,
+                                           segment_size=cfg.segment_size),
+                            podr2_key=key, device=dev)
+    segx = rand_bytes((xor_segs, cfg.segment_size), 111, dev)
+    idsx = torch.arange(xor_segs * 12, device=dev).reshape(xor_segs, 12)
+    idx4, nu4 = podr2.gen_challenge(b"chip-smoke-mesh-xor",
+                                    cfgx.blocks_per_fragment, device=dev)
+    refx = dense(segx, idsx)
+    sseg = rand_bytes((stream_segs, cfg.segment_size), 112, dev)
+    srefs = [pipe(sseg[a:a + stream_batch], torch.arange(
+        a * rows, min(a + stream_batch, stream_segs) * rows, device=dev))
+        for a in range(0, stream_segs, stream_batch)]
+    sseg = sseg.cpu()
+    pinned = sseg.pin_memory() if cuda else sseg
+    cards = make_mesh() if cuda else make_mesh([dev])
+    meshes = [("make_mesh()", cards)] + [
+        (f"({s}, {b})", make_mesh([dev] * 4, seg=s, byte=b))
+        for s, b in ((4, 1), (2, 2), (1, 4))]
+    walls = {}
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_phase = time.perf_counter()
+    for name, mesh in meshes:
+        step = sharded_pipeline_step(pipe, mesh)
+        t0 = time.perf_counter()
+        frags, tags, ok = step(segs.view(nseg, cfg.k, n), ids, idx, nu)
+        verdicts = ok.gather()
+        walls[name] = time.perf_counter() - t0
+        check(torch.equal(frags.gather(), ref["fragments"])
+              and torch.equal(tags.gather(), ref["tags"]),
+              f"mesh {name}: fragments or tags differ from the forward")
+        check(bool(verdicts.all()), f"mesh {name}: an honest proof failed")
+        # segment 0, fragment 1: its byte shard holding a challenged block
+        hit = (0, int(idx[0]) // (blocks // mesh.shape["byte"]))
+        frags.pieces[hit][1][0, 1] ^= 0xA5
+        bad = step.audit(frags, tags, ids, idx, nu).gather()
+        want = torch.ones_like(bad)
+        want[0, 1] = False
+        check(torch.equal(bad, want), f"mesh {name}: the tampered byte "
+              "shard did not fail exactly its fragment")
+        del frags, tags, ok, bad
+    # RS(4,8) under "xor", over (2, 2)
+    xor_before = counts()["gf_xor"]
+    t0 = time.perf_counter()
+    fx, tx, okx = sharded_pipeline_step(
+        pipex, make_mesh([dev] * 4, seg=2, byte=2))(
+            segx.view(xor_segs, 4, -1), idsx, idx4, nu4)
+    okx = okx.gather()
+    walls["xor (2, 2)"] = time.perf_counter() - t0
+    check(counts()["gf_xor"] > xor_before, "mesh: gf_xor did not launch "
+          "in the xor pipeline over (2, 2)")
+    check(torch.equal(fx.gather(), refx["fragments"])
+          and torch.equal(tx.gather(), refx["tags"]) and bool(okx.all()),
+          "mesh: RS(4,8) xor over (2, 2) differs from the dense forward")
+    del fx, tx, refx, segx
+    # the stream over a two-lane pool on the card
+    ing = StreamingIngest(pipe, stream_batch,
+                          pool=DevicePool([dev, dev]))
+    _sync(dev)
+    t0 = time.perf_counter()
+    outs = list(ing.run(pinned))
+    walls["stream (first run)"] = time.perf_counter() - t0
+    # a second run: the ragged tail's pinned buffer is made by the first
+    first = dict(ing.stats.raw())
+    t0 = time.perf_counter()
+    for _ in ing.run(pinned):
+        pass
+    walls["stream"] = time.perf_counter() - t0
+    stages = {k: round(v - first[k], 6) for k, v in ing.stats.raw().items()
+              if k.endswith("_s")}
+    check(len(outs) == len(srefs) and sum(o["rows"] for o in outs)
+          == stream_segs, "mesh: the stream yielded other batches")
+    for b, (out, want) in enumerate(zip(outs, srefs)):
+        check(torch.equal(out["fragments"].gather(), want["fragments"])
+              and torch.equal(out["tags"].gather(), want["tags"]),
+              f"mesh: pooled stream batch {b} differs from the forward")
+    stream_gib = stream_segs * cfg.segment_size / (1 << 30)
+    del outs, pinned, sseg, srefs
+    # run_corpus in one process: 1 GiB in batches of 24 (24, 24, 16)
+    plan = CorpusPlan(total_bytes=corpus_segs * cfg.segment_size,
+                      segment_size=cfg.segment_size,
+                      batch_segments=corpus_batch)
+
+    def local_batch(b, want):
+        return rand_bytes((want, cfg.k, n), 200 + b, dev)
+
+    t0 = time.perf_counter()
+    corpus = list(run_corpus(pipe, global_mesh(seg=2, byte=2,
+                                               devices=[dev] * 4),
+                             plan, local_batch))
+    walls["corpus"] = time.perf_counter() - t0
+    want_segs = [min(corpus_batch, corpus_segs - b * corpus_batch)
+                 for b in range(plan.num_batches)]
+    check([r["segments"] for r in corpus] == want_segs
+          and all(r["verified"] == r["expected"] == r["segments"] * rows
+                  for r in corpus), f"mesh: corpus batches {corpus}")
+    # a process group of one: nccl on the card
+    url = rendezvous or f"127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    check(init_multihost(url, 1, 0) == 1, "mesh: init_multihost")
+    backend = dist.get_backend()
+    try:
+        gmesh = global_mesh(seg=1, byte=2, devices=[dev, dev])
+        small = CorpusPlan(total_bytes=2 * cfg.segment_size,
+                           segment_size=cfg.segment_size, batch_segments=2)
+        (one,) = run_corpus(pipe, gmesh, small, local_batch)
+        check(one["verified"] == one["expected"] == 2 * rows,
+              f"mesh: the corpus batch over the process group: {one}")
+        parts = [torch.randint(0, pf.P, (nseg * rows, cfg.sectors + 2),
+                               device=dev, dtype=torch.int64)
+                 for _ in range(2)]
+        check(torch.equal(pf.psum_mod(parts, dist.group.WORLD),
+                          pf.psum_mod(parts)),
+              "mesh: psum_mod over the process group differs")
+    finally:
+        dist.destroy_process_group()
+    walls["process group"] = time.perf_counter() - t0
+    _sync(dev)
+    phase_s = time.perf_counter() - t_phase
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag", "gf_xor")),
+          f"mesh: a kernel was not launched: {launches}")
+
+    # each kernel at the phase's new shapes, against its plain version
+    shapes = []
+
+    def held(name, got, plain):
+        e = max_err(got, plain)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"mesh: {name} at {tuple(got.shape)} differs from "
+              "its plain version")
+        shapes.append(f"{name} {tuple(got.shape)}")
+
+    tab = rs_kernel.tables(gf.cauchy_parity_matrix(cfg.k, cfg.m), dev)
+    for byte in (2, 4):
+        cols = n // byte
+        col = segs.view(nseg, cfg.k, n)[:8, :, cols * (byte - 1):].contiguous()
+        held("gf_apply", rs_kernel.gf_apply(tab, col),
+             rs_kernel.gf_apply_plain(tab, col))
+        bl = blocks // byte
+        at = torch.arange(bl * (byte - 1), blocks, device=dev)
+        pairs = podr2.fragment_ids(ids[:8].reshape(-1), dev)
+        prf_lm = podr2_kernel.prf_blocks(key.prf_key, pairs, at, bl,
+                                         key.limbs, limb_major=True)
+        held("prf_blocks", prf_lm, prf.prf_plain(
+            key.prf_key, pairs, at, key.limbs).transpose(1, 2))
+        frag = ref["fragments"][:8].reshape(8 * rows, n)[:, cols * (byte - 1):]
+        frag = frag.contiguous().view(8 * rows, bl, podr2.BLOCK_BYTES)
+        held("podr2_tag", podr2_kernel.podr2_tag(key.weights, prf_lm, frag),
+             podr2_kernel.podr2_tag_plain(key.weights, prf_lm, frag))
+    schedx, opsx = pipex.parity_sched, pipex.parity_ops
+    colx = rand_bytes((4, 4, cfgx.fragment_size // 2), 113, dev)
+    held("gf_xor", rs_xor.gf_xor(schedx, opsx, colx),
+         rs_xor.xor_apply_plain(schedx, colx))
+    del ref, segs
+    _sync(dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"phase mesh: RS(2,1) {nseg} x 16 MiB segments, the chain's key; "
+          f"sharded step over make_mesh() ({cards.devices.size} card(s) "
+          f"present, torch.cuda.device_count() "
+          f"{torch.cuda.device_count() if cuda else 0}) and the card listed 4 "
+          f"times as (4, 1), (2, 2), (1, 4): fragments and tags byte-equal "
+          f"to the forward, verdicts true, the tampered byte shard false "
+          f"alone; walls "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
+          + f"; RS(4,8) xor over (2, 2) byte-equal to dense; pooled stream "
+          f"{stream_segs} pinned segments {stream_gib / walls['stream']:.3f} "
+          f"GiB/s from host bytes (2 lanes on one card; second run's stages "
+          f"{stages}); corpus "
+          f"{[r['segments'] for r in corpus]} verified; process group "
+          f"{backend} world of 1 reduced (int64 all_reduce); kernels "
+          f"byte-exact at the phase's shapes: {', '.join(shapes)}; phase "
+          f"wall {phase_s * 1e3:.3f} ms; peak {peak / MIB:.1f} MiB; "
+          f"launches {launches} {tag}")
+    return launches
+
+
+def pool_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
+               per: int = 4, threads: int = 8, drill_batches: int = 12
+               ) -> dict:
+    """The multi-device serving plane (``serve/pool.py``) at the main
+    path's width: ``make_engine(2, 1, podr2_key=Podr2Key.generate(7),
+    resilience=ResilienceConfig(), pool=DevicePool([card, card]))``.
+    Encodes of 8 requests of 4 segments (512 MiB, numpy, staggered by 5
+    ms so that batches overlap), tags of their 96 fragments (8 requests
+    of 12, CUDA tensors), one round's 8 aggregated proofs and their
+    checks (one tampered), and after ``warm_repair`` of RS(2,1)'s three
+    single-loss patterns 4 reconstructs submitted together: every result
+    byte-equal to the direct path, both lanes serving batches and warm
+    hits landing on each lane's codec. Then the chaos drill of
+    ``tests/test_pool.py`` at this width, twice: 12 encodes of [3, 2, 8
+    MiB] CUDA tensors under a plan raising at ``engine.dispatch.d0``:
+    lane 0's breaker trips, lane 1 absorbs every batch through
+    ``requeue``, nothing degrades to the CPU, a probe reaches lane 0,
+    and the two runs give equal firings and placement logs. Counters are
+    zeroed just before and read just after; then each kernel the engine
+    ran is held against its plain version at every shape in its program
+    cache (both lanes share the card: each shape once), and the
+    staggered encodes are timed on a fresh engine of two lanes and of
+    one, in turns. Returns the launches of the phase."""
+    import types
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch.models.pipeline import PipelineConfig
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.ops.rs import TorchCodec
+    from cess_tpu_torch.resilience import FaultPlan, ResilienceConfig, faults
+    from cess_tpu_torch.serve import DevicePool, make_engine
+
+    cfg = cfg or PipelineConfig()
+    cuda = dev.type == "cuda"
+    n, rows, blocks = cfg.fragment_size, cfg.k + cfg.m, cfg.blocks_per_fragment
+    key = podr2.Podr2Key.generate(7, device=dev)
+    codec = TorchCodec(cfg.k, cfg.m, device=dev)
+    seed = b"chip-smoke-pool-round"
+    idx, nu = podr2.gen_challenge(seed, blocks, device=dev)
+    data = [rand_bytes((per, cfg.k, n), 120 + i, dev) for i in range(threads)]
+    ids = [torch.stack([torch.arange(i * per * rows, (i + 1) * per * rows,
+                                     device=dev),
+                        torch.full((per * rows,), 9, device=dev)], dim=1)
+           for i in range(threads)]
+    coeffs = [podr2.aggregate_coeffs(seed, x, device=dev) for x in ids]
+    host = [d.cpu().numpy() for d in data]
+    patterns = [((1, 2), (0,)), ((0, 2), (1,)), ((0, 1), (2,))]
+    drill_in = [rand_bytes((3, cfg.k, n), 300 + i, dev)
+                for i in range(drill_batches)]
+
+
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_phase = time.perf_counter()
+    eng = make_engine(cfg.k, cfg.m, rs_backend=dev.type, podr2_key=key,
+                      audit_backend=dev.type, resilience=ResilienceConfig(),
+                      pool=DevicePool([dev, dev]))
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        futs = []
+        for x in host:
+            futs.append(eng.submit_encode(x))
+            time.sleep(0.005)
+        encs = [f.result(600) for f in futs]
+        walls["encode"] = time.perf_counter() - t0
+        frs = [torch.as_tensor(e).to(dev).reshape(per * rows, n)
+               for e in encs]
+        t0 = time.perf_counter()
+        futs = [eng.submit_tag(ids[i], frs[i]) for i in range(threads)]
+        tags = [f.result(600) for f in futs]
+        walls["tag"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        futs = [eng.submit_prove_aggregate(frs[i], tags[i], idx, nu,
+                                           coeffs[i])
+                for i in range(threads)]
+        proofs = [f.result(600) for f in futs]
+        futs = [eng.submit_verify_aggregate(ids[i], blocks, idx, nu,
+                                            coeffs[i], *proofs[i])
+                for i in range(threads)]
+        mu0, sigma0 = proofs[0]
+        futs.append(eng.submit_verify_aggregate(
+            ids[0], blocks, idx, nu, coeffs[0], mu0,
+            (sigma0.to(torch.int64) + 1) % podr2.pf.P))
+        verdicts = [bool(f.result(600)) for f in futs]
+        walls["round"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # a pattern's two requests may coalesce: warm both buckets
+        eng.warm_repair(patterns, n, buckets=(per, 2 * per))
+        walls["warm_repair"] = time.perf_counter() - t0
+        reps = [(i, patterns[i % 3]) for i in range(4)]
+        survivors = [np.ascontiguousarray(encs[i][:, list(p)])
+                     for i, (p, _) in reps]
+        t0 = time.perf_counter()
+        # submitted together: their batches are placed while earlier
+        # ones are in flight, so they spread over the lanes
+        futs = [eng.submit_reconstruct(s, p, mi)
+                for s, (_, (p, mi)) in zip(survivors, reps)]
+        rebuilt = [f.result(600) for f in futs]
+        walls["reconstruct"] = time.perf_counter() - t0
+        check(eng.flush(600), "pool: the engine did not drain")
+        snap = eng.stats_snapshot()
+        psnap = eng.pool.snapshot()
+        # the program cache's shapes; a lane's key ends in ("device", i):
+        # both lanes run on this card, so each shape is held once
+        progs = sorted({k[:-1] if isinstance(k[-1], tuple)
+                        and k[-1][:1] == ("device",) else k
+                        for k in eng.programs.keys()}, key=repr)
+        hits = [lane.codec.warm_hits for lane in eng.pool.lanes]
+        log = eng.pool.placement_log()
+    finally:
+        eng.close()
+
+    # the chaos drill, twice
+    def drill():
+        res = ResilienceConfig()
+        e = make_engine(cfg.k, cfg.m, rs_backend=dev.type, resilience=res,
+                        pool=DevicePool([dev, dev]))
+        plan = FaultPlan.seeded(b"chip-pool-drill",
+                                {"engine.dispatch.d0": (1.0, "raise")},
+                                horizon=64)
+        outs = []
+        try:
+            with faults.armed(plan):
+                for i in range(drill_batches):
+                    outs.append(e.encode(drill_in[i], timeout=600))
+                    check(e.flush(600), "pool: the drill did not drain")
+            return (outs, e.pool.snapshot(), res.stats.snapshot(),
+                    e.pool.placement_log(), plan.fired_log())
+        finally:
+            e.close()
+
+    t0 = time.perf_counter()
+    runs = [drill(), drill()]
+    walls["drill x2"] = time.perf_counter() - t0
+    _sync(dev)
+    phase_s = time.perf_counter() - t_phase
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")),
+          f"pool: a kernel was not launched: {launches}")
+    # every result against the direct path, after the counters are read
+    for i in range(threads):
+        enc = codec.encode(data[i])
+        check(np.array_equal(encs[i], enc.cpu().numpy()),
+              f"pool: encode {i} differs")
+        t = podr2.tag_fragments(key, ids[i], frs[i])
+        check(torch.equal(tags[i], t), f"pool: tags {i} differ")
+        mu, sigma = podr2.prove_aggregate(frs[i], t, idx, nu, coeffs[i])
+        check(torch.equal(proofs[i][0], mu) and torch.equal(proofs[i][1],
+                                                            sigma),
+              f"pool: proof {i} differs")
+    check(verdicts == [True] * threads + [False],
+          f"pool: verdicts {verdicts}")
+    for (i, (p, mi)), out in zip(reps, rebuilt):
+        want = codec.encode(data[i])[:, list(mi)].cpu().numpy()
+        check(np.array_equal(out, want), f"pool: reconstruct {i} differs")
+    served = [ln["batches"] for ln in psnap["lanes"]]
+    check(all(served), f"pool: a lane served no batch: {served}")
+    check(all(hits), f"pool: warm hits by lane {hits}: not on each lane")
+    for outs, dsnap, rsnap, dlog, fired in runs:
+        for i, out in enumerate(outs):
+            check(torch.equal(out, codec.encode(drill_in[i])),
+                  f"pool: drill encode {i} differs")
+        br = rsnap["breakers"]
+        check(br["codec.d0"]["state"] == "open" and br["codec.d0"]["trips"]
+              == 1 and br["codec.d1"]["trips"] == 0
+              and br["codec"]["trips"] == 0,
+              f"pool: drill breakers {br}")
+        lanes = dsnap["lanes"]
+        check(lanes[0]["batches"] == 0 and lanes[1]["batches"] == len(outs)
+              and lanes[1]["requeues"] > 0, f"pool: drill lanes {lanes}")
+        check(rsnap["degraded_batches"] == {} and not rsnap[
+            "fallback_batches"], "pool: the drill degraded to the CPU")
+        check(fired and all(s == "engine.dispatch.d0" for s, _, _ in fired),
+              f"pool: drill firings {fired}")
+        check((0, "probe") in [(r[4], r[5]) for r in dlog],
+              "pool: no probe reached lane 0")
+    check(runs[0][4] == runs[1][4] and runs[0][3] == runs[1][3],
+          "pool: the two drills' firings or placements differ")
+
+    # two lanes on one card against one: the staggered encodes on a
+    # fresh engine of each width, in turns (two, one, one, two)
+    def encode_wall(width):
+        e = make_engine(cfg.k, cfg.m, rs_backend=dev.type,
+                        pool=DevicePool([dev] * width))
+        try:
+            t0 = time.perf_counter()
+            fs = []
+            for x in host:
+                fs.append(e.submit_encode(x))
+                time.sleep(0.005)
+            for f in fs:
+                f.result(600)
+            return time.perf_counter() - t0
+        finally:
+            e.close()
+
+    turns = [encode_wall(w) for w in (2, 1, 1, 2)]
+    two_s, one_s = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    held = serve_kernel_checks(
+        progs, types.SimpleNamespace(config=cfg, podr2_key=key), dev, data,
+        [codec.encode(d) for d in data], ids, idx, 4, errs, phase="pool")
+    print(f"phase pool: RS(2,1) engine over DevicePool([card, card]), the "
+          f"chain's key; {threads * per} x 16 MiB segments encoded (numpy, "
+          f"staggered), {threads * per * rows} fragments tagged, {threads} "
+          f"proofs verified (tampered false), 4 warm reconstructs; all "
+          f"byte-equal to the direct path; batches by lane {served}, warm "
+          f"hits by lane {hits}, {len(log)} placements "
+          f"({sum(r[5] == 'least-loaded' for r in log)} least-loaded); "
+          f"{class_line(snap)}; chaos drill twice: lane 0 tripped, lane 1 "
+          f"served {runs[0][1]['lanes'][1]['batches']} batches "
+          f"({runs[0][1]['lanes'][1]['requeues']} by requeue), no CPU "
+          f"degradation, a probe reached lane 0, firings "
+          f"{len(runs[0][4])} equal in both runs, placement logs equal; "
+          f"kernels at the engine's shapes byte-exact against their plain "
+          f"versions: {held}; the staggered encodes in turns (two lanes, "
+          f"one, one, two): "
+          + "/".join(f"{t * 1e3:.3f}" for t in turns)
+          + f" ms, two lanes at {one_s / two_s:.3f}x one lane's rate; walls "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
+          + f"; phase wall {phase_s * 1e3:.3f} ms; peak {peak / MIB:.1f} "
+          f"MiB; launches {launches} {tag}")
+    return launches
+
+
 def parent_turns(parent: str, cases, tag: str) -> None:
     """Time each case's wrapper with the kernels built from ``parent``'s
     sources and with this tree's, in turns parent, change, change,
@@ -1569,7 +2078,15 @@ def main(argv: list[str]) -> int:
     launches_agents = agents_phase(dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 8. BASELINE geometry RS(4,8) ----------------------------------------
+    # 8. mesh: the sharded data plane, the card listed more than once
+    launches_mesh = mesh_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 9. pool: the engine over a two-lane device pool on the card
+    launches_pool = pool_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 10. BASELINE geometry RS(4,8) ---------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -1602,7 +2119,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 9. the xor path: RS(4,8) under strategy "xor", audited and repaired --
+    # 11. the xor path: RS(4,8) under strategy "xor", audited and repaired -
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -1679,7 +2196,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 10. known answer ------------------------------------------------------
+    # 12. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -1688,7 +2205,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 11. kernel times at the main paths' shapes --------------------------
+    # 13. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -1794,6 +2311,8 @@ def main(argv: list[str]) -> int:
             "launches_stream": launches_stream.get(name, 0),
             "launches_chaos": launches_chaos.get(name, 0),
             "launches_agents": launches_agents.get(name, 0),
+            "launches_mesh": launches_mesh.get(name, 0),
+            "launches_pool": launches_pool.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,

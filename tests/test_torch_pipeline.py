@@ -149,6 +149,9 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch.obs.flight\n"
             "import cess_tpu_torch.node, cess_tpu_torch.node.hashing\n"
             "import cess_tpu_torch.node.offchain\n"
+            "import cess_tpu_torch.parallel, cess_tpu_torch.parallel.mesh\n"
+            "import cess_tpu_torch.parallel.multihost\n"
+            "import cess_tpu_torch.serve.pool\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"
@@ -195,6 +198,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
             StoragePipeline(PipelineConfig(segment_size=SEGMENT), engine=eng)
     finally:
         eng.close()
+    # the multi-device planes: every CUDA device by default, never the CPU
+    from cess_tpu_torch.parallel import global_mesh, make_mesh
+    from cess_tpu_torch.serve import DevicePool
+
+    for build in (make_mesh, global_mesh, DevicePool,
+                  lambda: DevicePool(n=2),
+                  lambda: make_engine(2, 1, pool=True),
+                  lambda: make_engine(2, 1, rs_backend="cpu", pool=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
 
 
 @pytest.mark.parametrize("surface", ["pipeline", "engine", "stream"])

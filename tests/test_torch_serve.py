@@ -735,7 +735,7 @@ def test_warm_repair_warms_the_regen_folds():
 
 # -- surface -------------------------------------------------------------------
 
-@pytest.mark.parametrize("plane", ["slo", "adaptive", "admission", "pool",
+@pytest.mark.parametrize("plane", ["slo", "adaptive", "admission",
                                    "profile"])
 def test_unported_planes_are_refused(plane):
     codec = rs.make_codec(2, 1, "cpu")

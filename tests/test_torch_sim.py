@@ -133,3 +133,56 @@ def test_scenario_witness_equal_with_the_port_installed(name, monkeypatch):
         "tag_fragments", "prove_aggregate", "verify_aggregate"))
     assert jax_calls["generate"] >= 1          # the key the adapter converts
     assert jax_make_codec.cache_info() == codec_calls
+
+
+def test_repair_storm_witness_equal_with_the_port_pool(monkeypatch):
+    """``repair_storm`` (RS(2,2), 6 miners, 2 killed at once, repairs by
+    regen symbols fanned over a 3-lane pool engine while a seeded fault
+    trips every repair dispatch on lane 0): its engine becomes a port
+    engine, a ``RegenCodec`` and a CPU ``AuditBackend`` with the JAX
+    key adapted, over ``DevicePool(["cpu"] * 3)``. The port engine's
+    fault sites and flight notes go through the JAX plan and recorder
+    the scenario arms. The same witness as the JAX-only run."""
+    from cess_tpu.obs import flight as jflight
+    from cess_tpu.resilience import faults as jfaults
+    from cess_tpu.sim import scenarios
+    from cess_tpu_torch.obs import flight as tflight
+    from cess_tpu_torch.ops import regen
+    from cess_tpu_torch.ops.audit_backend import make_audit_backend
+    from cess_tpu_torch.resilience import ResilienceConfig
+    from cess_tpu_torch.resilience import faults as tfaults
+    from cess_tpu_torch.serve import DevicePool, SubmissionEngine
+
+    scenario = SCENARIOS["repair_storm"]
+    want = run_scenario(scenario, SEED, n_nodes=N_NODES, strict=True)
+    install_port(monkeypatch)
+    monkeypatch.setattr(tfaults, "inject", jfaults.inject)
+    monkeypatch.setattr(tflight, "note", jflight.note)
+    built = []
+
+    def pool_engine(world, profile=False, regen_codec=False, lanes=True):
+        assert not profile and regen_codec and lanes == 3
+        cfg = world.pipeline.config
+        eng = SubmissionEngine(
+            regen.RegenCodec(cfg.k, cfg.m, "cpu"),
+            make_audit_backend(world.pipeline.podr2_key, "cpu"),
+            resilience=ResilienceConfig(), pool=DevicePool(["cpu"] * lanes))
+        eng.profile = None          # the sim reads it; the port has none
+        built.append(eng)
+        return eng
+
+    monkeypatch.setattr(scenarios, "_pool_engine",
+                        lambda world, profile=False, regen=False, lanes=True:
+                        pool_engine(world, profile, regen, lanes))
+    got = run_scenario(scenario, SEED, n_nodes=N_NODES, strict=True)
+    assert got.witness() == want.witness()
+    assert got.rounds_run == want.rounds_run == scenario.rounds
+    (eng,) = built
+    snap = eng.pool.snapshot()
+    assert got.pool == want.pool == snap
+    lanes = snap["lanes"]
+    assert lanes[0]["breakers"]["codec"] == "open"
+    assert sum(ln["batches"] for ln in lanes[1:]) > 0
+    trips = [e for e in got.recorder.journal_tail("breaker")
+             if e["kind"] == "trip"]
+    assert any(e["detail"]["name"] == "codec.d0" for e in trips)
