@@ -11,9 +11,14 @@ encode + tag, staged through pinned host buffers on a side copy stream.
 ``pool.py``: the multi-device serving plane, a ``DevicePool`` of
 per-device worker lanes the engine spreads its batches over
 (``make_engine(pool=...)``), and the lanes' mesh for the stream
-(``StreamingIngest(pool=...)``). The direct synchronous path stays the
-default wherever no engine is configured.
+(``StreamingIngest(pool=...)``). ``adaptive.py``: per-class batching
+knobs tuned from the live latency signal (``AdaptiveBatchPolicy``) and
+SLO-gated, deadline-aware admission (``AdmissionController``) over an
+``obs.SloBoard`` (``make_engine(slo=..., adaptive=..., admission=...)``).
+The direct synchronous path stays the default wherever no engine is
+configured.
 """
+from .adaptive import AdaptiveBatchPolicy, AdmissionController
 from .engine import EngineFuture, SubmissionEngine, make_engine
 from .policy import (CLASS_PRIORITY, CLASSES, AdmissionPolicy, EngineClosed,
                      EngineError, EngineSaturated, EngineShed, EngineTimeout,
@@ -23,6 +28,8 @@ from .stats import EngineStats, StreamStats
 from .stream import StreamingIngest
 
 __all__ = [
+    "AdaptiveBatchPolicy",
+    "AdmissionController",
     "AdmissionPolicy",
     "CLASSES",
     "CLASS_PRIORITY",

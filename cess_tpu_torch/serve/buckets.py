@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Callable
 
 
@@ -48,6 +49,10 @@ class ProgramCache:
             collections.OrderedDict()
         self._stats = stats
         self.capacity = capacity
+        # the engine's obs.profile.ProfilePlane when it has one: every
+        # MISS lands in its CompileLedger with the key and the build's
+        # wall time (hits never get there)
+        self.profile = None
         # the batcher thread owns steady-state lookups, but warm-path
         # callers (SubmissionEngine.warm_repair) fill it from their own
         # thread
@@ -73,7 +78,13 @@ class ProgramCache:
                 return prog
         # build OUTSIDE the lock: a build stages tables and matrices on
         # the device and must not serialize against concurrent hits
-        prog = build()
+        prof = self.profile
+        if prof is None:
+            prog = build()
+        else:
+            t0 = time.perf_counter()
+            prog = build()
+            prof.compile_event(key, time.perf_counter() - t0)
         with self._mu:
             if key not in self._programs:
                 self._programs[key] = prog

@@ -112,10 +112,32 @@ not wait for each other. A tensor member's result lies on the device of
 the lane that computed it. A card member is never computed on the host:
 with every lane sick it is refused as on the single-device path.
 
-Every submit takes the TPU engine's ``tenant=`` tag; the port has no SLO
-board yet, so it is accepted and ignored. The SLO and adaptive planes,
-admission and profiling are not ported and the constructor takes no
-argument for them.
+Control planes (opt-in, the port's copies of the TPU engine's). Every
+submit takes a ``tenant=`` tag. With an ``obs.slo.SloBoard`` (``slo=``)
+every resolved, failed, refused or expired request feeds the board's
+burn-rate windows and per-tenant accounting, and the drain's anchor
+becomes weighted-fair across the tenants queued in a class (the tenant
+with the fewest served device rows goes first; the board's tenant cap
+and overflow bucket apply), so one heavy uploader cannot starve another
+tenant's differently keyed work. With a ``serve.adaptive.
+AdaptiveBatchPolicy`` (``adaptive=``) the batcher reads each class's
+max_delay and request and row budgets from it (``_knobs``) instead of
+the static policy. With an ``AdmissionController`` (``admission=``;
+:func:`make_engine` builds one when both a board and a tuner are given)
+sheddable submits are refused with ``EngineShed`` (counted as the
+class's ``shed``, marked by an ``outcome="shed"`` span and an
+``("engine", "shed")`` journal note) while a protected class burns, and
+the codec breaker is held open: the held breaker serves numpy codec
+members on the CPU reference and refuses card members with
+``EngineUnavailable``, no kernel launched, as any open breaker does.
+With an ``obs.profile.ProfilePlane`` (``profile=``) every dispatch is
+accounted per (class, bucket, lane), its pad rows land in the pad
+ledger, each program-cache miss in the compile ledger, and an anchored
+watchdog judges the encode GiB/s. The planes are fed with the engine
+lock released and before the batch's futures resolve; the timings they
+get are submit (or batch start) to completion, the batch having been
+synchronized. With none of them configured each hook is one attribute
+load and a ``None`` check and nothing is allocated.
 """
 from __future__ import annotations
 
@@ -141,7 +163,8 @@ from ..resilience import faults
 from ..resilience.retry import Budget
 from .buckets import ProgramCache, bucket_rows
 from .policy import (CLASSES, AdmissionPolicy, EngineClosed,
-                     EngineSaturated, EngineTimeout, EngineUnavailable)
+                     EngineSaturated, EngineShed, EngineTimeout,
+                     EngineUnavailable)
 from .stats import EngineStats
 
 _TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8,
@@ -199,6 +222,8 @@ class _Request:
     # submitter's thread and finished on the batcher's, so it rides
     # here (contextvars do not cross threads); NOOP_SPAN untraced
     span: Any = trace.NOOP_SPAN
+    # per-tenant accounting tag (obs/slo.py); None when untagged
+    tenant: str | None = None
 
 
 def _host(x) -> np.ndarray:
@@ -209,10 +234,13 @@ def _host(x) -> np.ndarray:
 
 
 def _round_digest(num_blocks: int, idx: np.ndarray, nu: np.ndarray) -> bytes:
-    """Coalescing identity of a challenge round's derived parameters."""
+    """Coalescing identity of a challenge round's derived parameters,
+    hashed in the TPU package's challenge dtypes (int32 indices, uint32
+    coefficients), so a round's program keys, and so the profile's
+    compile ledger, read alike in both packages."""
     h = hashlib.sha256(int(num_blocks).to_bytes(8, "little"))
-    h.update(idx.tobytes())
-    h.update(nu.tobytes())
+    h.update(idx.astype(np.int32).tobytes())
+    h.update(nu.astype(np.uint32).tobytes())
     return h.digest()[:16]
 
 
@@ -233,6 +261,16 @@ def _norm(arr, dtype):
     return a if a.flags.writeable else a.copy()
 
 
+def _payload_bytes(a) -> int:
+    """A payload's bytes as the protocol carries them: bytes are bytes,
+    and every other payload (ids, tags, field elements, coefficients)
+    holds 32-bit words that the port widens to int64 only because CPU
+    torch has no uint32; each counts 4 bytes, as in the TPU package."""
+    if isinstance(a, torch.Tensor):
+        return a.numel() * (1 if a.dtype == torch.uint8 else 4)
+    return a.size * (1 if a.dtype == np.uint8 else 4)
+
+
 def _take_blocks(a, idx: np.ndarray):
     """a[:, idx] on the host for numpy, on the tensor's device otherwise."""
     if isinstance(a, torch.Tensor):
@@ -247,7 +285,9 @@ class SubmissionEngine:
     must live on one device, the engine's. ``resilience``: an optional
     ``resilience.ResilienceConfig``; ``tracer``: an optional
     ``obs.trace.Tracer`` (else the process-armed one, if any); ``pool``:
-    an optional ``serve.pool.DevicePool`` to spread batches over."""
+    an optional ``serve.pool.DevicePool`` to spread batches over;
+    ``slo``, ``adaptive``, ``admission``, ``profile``: the control planes
+    (module docstring)."""
 
     # op class -> which backend's breaker gates it
     _BACKEND_OF = {"encode": "codec", "repair": "codec",
@@ -256,7 +296,8 @@ class SubmissionEngine:
 
     def __init__(self, codec=None, audit=None,
                  policy: AdmissionPolicy | None = None,
-                 resilience=None, tracer=None, pool=None):
+                 resilience=None, tracer=None, slo=None, adaptive=None,
+                 admission=None, pool=None, profile=None):
         if codec is None and audit is None:
             raise ValueError("engine needs a codec and/or audit backend")
         devices = {g.device for g in (codec, audit) if g is not None}
@@ -274,6 +315,20 @@ class SubmissionEngine:
         self.policy = policy or AdmissionPolicy()
         self.stats = EngineStats()
         self.programs = ProgramCache(self.stats)
+        # the control planes (module docstring); None: each hook is one
+        # attribute load and a None check, and nothing is allocated
+        self.slo = slo
+        self.adaptive = adaptive
+        self.admission = admission
+        self.profile = profile
+        self.stats.slo = slo
+        self.stats.adaptive = adaptive
+        self.stats.profile = profile
+        if profile is not None:
+            self.programs.profile = profile
+        # per-(class, tenant) served device rows: the weighted-fair
+        # drain's deficit counters (engine lock; filled only with a board)
+        self._tenant_rows: dict[str, dict[str, int]] = {}
         self.resilience = resilience
         self.monitors: dict[str, Any] = {}
         self._fallback_codec = None
@@ -294,6 +349,11 @@ class SubmissionEngine:
             for name, mon in self.monitors.items():
                 mon.name = name           # flight-journal identity
                 resilience.stats.register_monitor(name, mon)
+        if admission is not None:
+            # after the monitors exist: the controller latches the codec
+            # breaker for its degrade response (no resilience, no
+            # breaker: shed-only admission)
+            admission.bind(self)
         self._queues: dict[str, collections.deque[_Request]] = {
             c: collections.deque() for c in CLASSES}
         self._lock = threading.Lock()
@@ -321,7 +381,7 @@ class SubmissionEngine:
     # ------------------------------------------------------------------
     # submission API: each submit_* returns an EngineFuture; the
     # same-named plain method is the blocking convenience form. Every
-    # one takes ``tenant`` (the TPU engine's accounting tag, unused).
+    # one takes ``tenant``, the accounting tag of the SLO plane.
     # ------------------------------------------------------------------
 
     # -- encode (ErasureCodec) ----------------------------------------
@@ -644,6 +704,17 @@ class SubmissionEngine:
         snapshots itself consistently, so no engine lock is needed."""
         return self.stats.histograms()
 
+    def labeled_series(self) -> list:
+        """Labeled exposition series, ``(family, kind, labels, value)``,
+        from the SLO board (``cess_slo_*`` per-class gauges,
+        ``cess_tenant_*`` counters); empty without one."""
+        return [] if self.slo is None else self.slo.series()
+
+    def labeled_histograms(self) -> list:
+        """Labeled histogram families, ``(family, labels, Histogram)``:
+        the per-tenant latency distributions; empty without a board."""
+        return [] if self.slo is None else self.slo.tenant_histograms()
+
     def flush(self, timeout: float | None = None) -> bool:
         """Force-drain everything queued and wait until it resolves (no
         waiting out the coalescing delay). Returns False if the timeout
@@ -751,6 +822,28 @@ class SubmissionEngine:
         now = time.monotonic()
         if timeout is None:
             timeout = self.policy.default_timeout
+        # SLO-gated admission (serve/adaptive.py), before anything is
+        # queued or allocated: a shed is an explicit EngineShed
+        adm = self.admission
+        if adm is not None:
+            reason = adm.admit(cls, timeout, tenant,
+                               queued=len(self._queues[cls]))
+            if reason is not None:
+                with self._lock:
+                    self.stats.classes[cls].shed += 1
+                # a marker span (the flight recorder pins outcome="shed")
+                # and a journal note, both outside the engine lock: the
+                # shed-storm bundle reads stats_snapshot()
+                tracer = self._tracer_now()
+                if tracer is not None:
+                    with tracer.start(f"engine.{cls}", sys="engine", cls=cls,
+                                      rows=rows, op=key[0], outcome="shed",
+                                      reason=reason) as sp:
+                        if tenant is not None:
+                            sp.set(tenant=tenant)
+                _flight.note("engine", "shed", cls=cls, reason=reason,
+                             tenant=tenant)
+                raise EngineShed(f"{cls} request shed: {reason}")
         tensors = [a for a in arrays.values() if isinstance(a, torch.Tensor)]
         ready = None
         cuda = [t for t in tensors if t.is_cuda]
@@ -764,7 +857,7 @@ class SubmissionEngine:
                        enqueue_t=now,
                        deadline=None if timeout is None else now + timeout,
                        future=fut, squeeze=squeeze, device=bool(tensors),
-                       ready=ready)
+                       ready=ready, tenant=tenant)
         tracer = self._tracer_now()
         if tracer is not None:
             # finished when the request resolves, fails, expires or is
@@ -799,10 +892,14 @@ class SubmissionEngine:
     def _run(self) -> None:
         with self._device_scope():
             while True:
+                batch: list[_Request] = []
+                breaches: list[tuple] = []
                 with self._cond:
                     while True:
                         now = time.monotonic()
-                        self._expire(now)
+                        self._expire(now, breaches)
+                        if breaches:
+                            break
                         cls = self._ready_class(now)
                         if cls is not None:
                             batch = self._drain(cls)
@@ -812,6 +909,15 @@ class SubmissionEngine:
                             self._cond.notify_all()
                             return
                         self._cond.wait(self._wake_timeout(now))
+                if breaches:
+                    # expired requests burn the SLO budget: fed with the
+                    # engine lock released (board listeners take breaker
+                    # locks); no batch was drained, so go round again
+                    slo = self.slo
+                    for bcls, lat, tenant, rows in breaches:
+                        slo.observe(bcls, lat, ok=False, tenant=tenant,
+                                    rows=rows)
+                    continue
                 pool = self.pool
                 if pool is not None:
                     # the pool's chosen lane runs the batch and settles
@@ -842,12 +948,27 @@ class SubmissionEngine:
             self._inflight -= 1
             self._cond.notify_all()
 
-    def _expire(self, now: float) -> None:
+    def _knobs(self, cls: str) -> tuple[float, int, int]:
+        """(max_delay, max_batch_requests, max_batch_rows) for this class:
+        the adaptive tuner's live values when there is one, else the
+        static policy's; the one seam through which the tuner steers the
+        batcher."""
+        ad = self.adaptive
+        if ad is not None:
+            return ad.knobs(cls)
+        pol = self.policy
+        return pol.max_delay, pol.max_batch_requests, pol.max_batch_rows
+
+    def _expire(self, now: float, breaches: list) -> None:
         """Cancel EVERY queued request whose deadline passed, in every
         class (lock held). Running before readiness checks means a dead
         request in a quiet class cancels promptly even while other
         classes carry traffic, never trips a spurious drain, and stops
-        counting against its queue's cap."""
+        counting against its queue's cap. A timed-out request is an SLO
+        breach, but the board is never fed under the engine lock: with a
+        board, breaches are collected into ``breaches`` for the caller
+        to observe after releasing it (empty without one)."""
+        slo = self.slo
         for cls, q in self._queues.items():
             if not any(r.deadline is not None and r.deadline <= now
                        for r in q):
@@ -861,6 +982,9 @@ class SubmissionEngine:
                         f"{cls} request deadline expired before "
                         "batching"))
                     r.span.set(outcome="timeout").finish()
+                    if slo is not None:
+                        breaches.append((cls, now - r.enqueue_t, r.tenant,
+                                         r.rows))
                 else:
                     keep.append(r)
             q.clear()
@@ -873,7 +997,6 @@ class SubmissionEngine:
         the HIGHEST-PRIORITY non-empty class goes first, whichever class
         tripped: a just-arrived verification preempts the bulk encode
         whose delay expired."""
-        pol = self.policy
         first_nonempty = None
         for cls in CLASSES:               # priority order
             q = self._queues[cls]
@@ -881,18 +1004,22 @@ class SubmissionEngine:
                 continue
             if first_nonempty is None:
                 first_nonempty = cls
+            max_delay, max_reqs, max_rows = self._knobs(cls)
             if (self._closed or self._flushing
-                    or len(q) >= pol.max_batch_requests
-                    or q[0].enqueue_t + pol.max_delay <= now
-                    or sum(r.rows for r in q) >= pol.max_batch_rows):
+                    or len(q) >= max_reqs
+                    or q[0].enqueue_t + max_delay <= now
+                    or sum(r.rows for r in q) >= max_rows):
                 return first_nonempty
         return None
 
     def _wake_timeout(self, now: float) -> float | None:
         wake = None
-        for q in self._queues.values():
+        for cls, q in self._queues.items():
+            if not q:
+                continue
+            max_delay = self._knobs(cls)[0]
             for r in q:
-                t = r.enqueue_t + self.policy.max_delay
+                t = r.enqueue_t + max_delay
                 if r.deadline is not None:
                     t = min(t, r.deadline)
                 wake = t if wake is None else min(wake, t)
@@ -906,22 +1033,59 @@ class SubmissionEngine:
     _STACKED_OPS = ("prove", "verify_agg")
     PAD_SPREAD = 4
 
+    def _anchor_index(self, cls: str, q) -> int:
+        """Which queued request anchors the next batch (lock held).
+        Without a board: the oldest. With one: weighted-fair across the
+        tenants queued, the OLDEST request of the tenant with the fewest
+        served device rows (ties by name: deterministic), so a heavy
+        uploader's backlog cannot indefinitely pre-empt another tenant's
+        differently keyed work in the same class."""
+        if self.slo is None or len(q) < 2:
+            return 0
+        served = self._tenant_rows.get(cls, {})
+        first_of: dict[str, int] = {}
+        for i, r in enumerate(q):
+            t = self._fair_key(r.tenant, served)
+            if t not in first_of:
+                first_of[t] = i
+        if len(first_of) < 2:
+            return 0
+        tenant = min(first_of, key=lambda t: (served.get(t, 0), t))
+        return first_of[tenant]
+
+    def _fair_key(self, tenant: str | None, served: dict) -> str:
+        """A tenant's deficit-counter key: its own name while in the
+        board's cap, the board's overflow bucket once ``max_tenants``
+        names exist. The ONE aliasing rule of both sides:
+        ``_account_batch`` charges served rows under it and
+        ``_anchor_index`` reads deficits through it."""
+        t = tenant or ""
+        if t not in served and len(served) >= self.slo.max_tenants:
+            from ..obs.slo import OVERFLOW
+
+            return OVERFLOW
+        return t
+
     def _drain(self, cls: str) -> list[_Request]:
-        """Pop one coalescible batch (lock held): the oldest request and
-        the queued requests sharing its key, up to the request and row
-        budgets; the rest stay queued in order."""
+        """Pop one coalescible batch (lock held): the anchor request (the
+        oldest, or the fair-queued tenant's oldest: ``_anchor_index``)
+        and the queued requests sharing its key, up to the class's
+        request and row budgets; the rest stay queued in order."""
         q = self._queues[cls]
         if not q:
             return []
-        first = q[0]
+        idx = self._anchor_index(cls, q)
+        first = q[idx]
         stacked = first.key[0] in self._STACKED_OPS
         anchor_bucket = bucket_rows(first.rows)
-        pol = self.policy
+        _, max_reqs, max_rows = self._knobs(cls)
         batch, rest, rows = [first], [], first.rows
-        for r in list(q)[1:]:
+        for i, r in enumerate(q):
+            if i == idx:
+                continue
             fits = (r.key == first.key
-                    and len(batch) < pol.max_batch_requests
-                    and rows + r.rows <= pol.max_batch_rows)
+                    and len(batch) < max_reqs
+                    and rows + r.rows <= max_rows)
             if fits and stacked:
                 b = bucket_rows(r.rows)
                 fits = (b <= self.PAD_SPREAD * anchor_bucket
@@ -1040,13 +1204,15 @@ class SubmissionEngine:
                 return False
             with self._lock:
                 self.stats.classes[cls].failed += len(batch)
+            fail_t = time.monotonic()
             for r in batch:
                 r.future._reject(e)
                 r.span.set(outcome="error", error=repr(e)).finish()
+                self._observe_failure(r, fail_t)
             return False
         if mon is not None and not degraded:
             mon.record_success(time.monotonic() - t0)
-        self._account_batch(batch, device_rows, bspan)
+        self._account_batch(batch, device_rows, bspan, lane=lane, t0=t0)
         bspan.finish()
         for r, out in zip(batch, results):
             r.future._resolve(out)
@@ -1121,8 +1287,9 @@ class SubmissionEngine:
                     self.stats.classes[cls].failed += 1
                 r.future._reject(exc)
                 r.span.set(outcome="error", error=repr(exc)).finish()
+                self._observe_failure(r, time.monotonic())
             else:
-                self._account_batch([r], rows)
+                self._account_batch([r], rows, lane=lane)
                 r.future._resolve(out[0])
                 r.span.set(outcome="ok").finish()
 
@@ -1139,17 +1306,34 @@ class SubmissionEngine:
         if card:
             with self._lock:
                 self.stats.classes[batch[0].cls].failed += len(card)
+            fail_t = time.monotonic()
             for r in card:
                 r.future._reject(exc)
                 r.span.set(outcome="error", error=repr(exc)).finish()
+                self._observe_failure(r, fail_t)
         return [r for r in batch if not self._on_card(r)]
 
+    def _observe_failure(self, r: _Request, now: float) -> None:
+        """Feed one rejected request into the SLO windows (failures burn
+        the error budget); one None check without a board."""
+        slo = self.slo
+        if slo is not None:
+            slo.observe(r.cls, now - r.enqueue_t, ok=False, tenant=r.tenant,
+                        rows=r.rows)
+
     def _account_batch(self, batch: list[_Request], device_rows: int,
-                       batch_span=trace.NOOP_SPAN) -> None:
+                       batch_span=trace.NOOP_SPAN, lane=None,
+                       t0: float | None = None) -> None:
+        """Count a served batch, then feed the planes: ``done`` is after
+        the batch's synchronize (``_split_rows``, ``_op_prove``), so each
+        latency and ``dispatch_s = done - t0`` include the device work.
+        ``lane``: the pool lane that ran it (its index keys the profile's
+        account)."""
         done = time.monotonic()
         real_rows = sum(r.rows for r in batch)
+        cls = batch[0].cls
         with self._lock:
-            st = self.stats.classes[batch[0].cls]
+            st = self.stats.classes[cls]
             st.batches += 1
             st.batched_requests += len(batch)
             st.rows += real_rows
@@ -1159,6 +1343,34 @@ class SubmissionEngine:
                 lat = done - r.enqueue_t
                 st.latencies.append(lat)
                 st.hist.observe(lat)
+            if self.slo is not None:
+                # the weighted-fair drain's deficit counters (bounded:
+                # past the cap a new tenant shares the overflow bucket)
+                served = self._tenant_rows.setdefault(cls, {})
+                for r in batch:
+                    t = self._fair_key(r.tenant, served)
+                    served[t] = served.get(t, 0) + r.rows
+        # the planes' feeds with the engine lock released (their owners
+        # have their own locks; board listeners take breaker locks)
+        slo = self.slo
+        if slo is not None:
+            for r in batch:
+                slo.observe(cls, done - r.enqueue_t, ok=True,
+                            tenant=r.tenant, rows=r.rows)
+        ad = self.adaptive
+        if ad is not None:
+            for r in batch:
+                ad.note(cls, done - r.enqueue_t, len(batch))
+        prof = self.profile
+        if prof is not None:
+            prof.on_batch(
+                cls, device_rows, 0 if lane is None else lane.index,
+                rows=real_rows, padded=max(device_rows - real_rows, 0),
+                requests=len(batch),
+                nbytes=sum(_payload_bytes(a) for r in batch
+                           for a in r.arrays.values()),
+                queue_s=sum(done - r.enqueue_t for r in batch),
+                dispatch_s=0.0 if t0 is None else done - t0)
         # span attributes only when the spans are real
         if batch_span is not trace.NOOP_SPAN:
             pad = max(device_rows - real_rows, 0)
@@ -1466,7 +1678,8 @@ def make_engine(k: int | None = None, m: int | None = None, *,
                 rs_backend: str | None = None, strategy: str | None = None,
                 podr2_key=None, audit_backend: str | None = None,
                 policy: AdmissionPolicy | None = None, resilience=None,
-                tracer=None, pool=None) -> SubmissionEngine:
+                tracer=None, slo=None, adaptive=None, admission=None,
+                pool=None, profile=None) -> SubmissionEngine:
     """Build an engine over the two gates.
 
     k/m select the ErasureCodec geometry (None: no codec, the engine
@@ -1487,7 +1700,15 @@ def make_engine(k: int | None = None, m: int | None = None, *,
     ``DevicePool``, True (every CUDA device; raises without a card) or a
     lane count N (the first N CUDA devices, or N ``"cpu"`` lanes when
     the gates are on the CPU); None, 0 and False: the single-device
-    path, unchanged.
+    path, unchanged. slo: an optional ``obs.slo.SloBoard`` (burn-rate
+    monitors, tenant accounting, the weighted-fair drain). adaptive: an
+    ``serve.adaptive.AdaptiveBatchPolicy``, or True to build one seeded
+    from ``policy`` and steered by the board's targets (needs ``slo``).
+    admission: an ``AdmissionController``; built from the board and the
+    tuner when both are given and it is None (False: none). profile: an
+    optional ``obs.profile.ProfilePlane`` (per-shape accounts, the pad
+    and compile ledgers, and, anchored on a baseline measured on the
+    card, the throughput watchdog).
     """
     codec = None
     if k is not None:
@@ -1495,6 +1716,19 @@ def make_engine(k: int | None = None, m: int | None = None, *,
     audit = None
     if podr2_key is not None:
         audit = ab.make_audit_backend(podr2_key, audit_backend)
+    if adaptive is True:
+        if slo is None:
+            # a tuner with no board has no targets to steer toward and
+            # would never adjust a knob
+            raise ValueError("adaptive=True needs an slo= board "
+                             "(its targets steer the knob tuner)")
+        from .adaptive import AdaptiveBatchPolicy
+
+        adaptive = AdaptiveBatchPolicy(policy, board=slo)
+    if admission is None and slo is not None and adaptive is not None:
+        from .adaptive import AdmissionController
+
+        admission = AdmissionController(slo, adaptive)
     if pool and not hasattr(pool, "bind"):
         from .pool import DevicePool
 
@@ -1505,4 +1739,6 @@ def make_engine(k: int | None = None, m: int | None = None, *,
         else:
             pool = DevicePool(n=None if pool is True else int(pool))
     return SubmissionEngine(codec, audit, policy, resilience=resilience,
-                            tracer=tracer, pool=pool or None)
+                            tracer=tracer, slo=slo, adaptive=adaptive,
+                            admission=admission or None, pool=pool or None,
+                            profile=profile)

@@ -3,10 +3,13 @@
 The port's copy of ``cess_tpu/serve/stats.py`` under the same
 ``cess_engine_*`` names, with the resilience attachment (its snapshot
 under ``"resilience"``, its ``cess_resilience_*`` gauges merged into the
-metrics) and the device pool's (its snapshot under ``"devices"``, its
-``cess_engine_device_*`` gauges), and without the attachments of the
-planes the port does not have yet (SLO, adaptive control, profiling) or
-the ``shed`` counter that only SLO-gated admission increments.
+metrics), the device pool's (its snapshot under ``"devices"``, its
+``cess_engine_device_*`` gauges), the SLO board's and the adaptive
+tuner's (``"slo"``, ``"adaptive"`` and the ``cess_adaptive_*`` gauges;
+the board's labeled families come from the engine's
+``labeled_series``/``labeled_histograms``), the profile plane's
+(``"profile"`` and the ``cess_profile_*`` gauges) and the per-class
+``shed`` counter that SLO-gated admission increments.
 
 Everything here is updated under the engine lock (the batcher and the
 submitters hold it at every recording site), so the counters need no
@@ -24,8 +27,8 @@ LATENCY_WINDOW = 512     # per-class sliding window for percentiles
 
 class ClassStats:
     __slots__ = ("submitted", "completed", "failed", "timeouts",
-                 "saturated", "batches", "batched_requests", "rows",
-                 "padded_rows", "latencies", "hist")
+                 "saturated", "shed", "batches", "batched_requests",
+                 "rows", "padded_rows", "latencies", "hist")
 
     def __init__(self):
         self.submitted = 0          # requests admitted to the queue
@@ -33,6 +36,7 @@ class ClassStats:
         self.failed = 0             # futures resolved with an op error
         self.timeouts = 0           # cancelled: deadline expired queued
         self.saturated = 0          # rejected at submit: queue full
+        self.shed = 0               # rejected by SLO-gated admission
         self.batches = 0            # device batches launched
         self.batched_requests = 0   # requests across those batches
         self.rows = 0               # real rows across those batches
@@ -129,6 +133,11 @@ class EngineStats:
         # the engine's serve.pool.DevicePool when it has one: the same
         # duck-typed contract, the cess_engine_device_* family
         self.pool = None
+        # the engine's obs.slo.SloBoard, serve.adaptive.AdaptiveBatchPolicy
+        # and obs.profile.ProfilePlane when it has them: the same contract
+        self.slo = None
+        self.adaptive = None
+        self.profile = None
 
     def snapshot(self, queue_depths: dict[str, int] | None = None) -> dict:
         """JSON-shaped dump."""
@@ -144,6 +153,7 @@ class EngineStats:
                 "failed": st.failed,
                 "timeouts": st.timeouts,
                 "saturated": st.saturated,
+                "shed": st.shed,
                 "batches": st.batches,
                 "batch_occupancy": round(st.occupancy, 4),
                 "pad_waste": round(st.pad_waste, 4),
@@ -154,8 +164,14 @@ class EngineStats:
             out["streams"] = [s.snapshot() for s in self.streams]
         if self.resilience is not None:
             out["resilience"] = self.resilience.snapshot()
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
+        if self.adaptive is not None:
+            out["adaptive"] = self.adaptive.snapshot()
         if self.pool is not None:
             out["devices"] = self.pool.snapshot()
+        if self.profile is not None:
+            out["profile"] = self.profile.snapshot()
         return out
 
     def metrics(self, queue_depths: dict[str, int] | None = None
@@ -178,8 +194,12 @@ class EngineStats:
                 out[f"cess_engine_stream_{name}"] = float(val)
         if self.resilience is not None:
             out.update(self.resilience.metrics())
+        if self.adaptive is not None:
+            out.update(self.adaptive.metrics())
         if self.pool is not None:
             out.update(self.pool.metrics())
+        if self.profile is not None:
+            out.update(self.profile.metrics())
         return out
 
     def histograms(self) -> dict[str, prom.Histogram]:

@@ -39,6 +39,19 @@ program (``StoragePipeline.fused_program``) over host segments:
   with the error, notes ``stream``/``escape`` in the flight journal and
   surfaces to the consumer.
 
+The attached engine's control planes see the stream as the class
+``stream``: its SLO board gets each batch's latency (and a failed
+batch's, as a failure) charged to ``tenant``, and its profile plane the
+batch's bytes, its pad rows (the ragged tail's, in the same pad ledger
+as the engine's bucket padding) and its ``h2d_s`` and ``dispatch_s``.
+The one timing difference from the TPU package's driver: on the card
+the launch returns before the copy and the kernels ran, so both feeds
+are taken when the batch's completion event is reached (at its drain),
+from the start of its staging: the latency is the time until the batch
+was done, not until it was launched, and ``dispatch_s`` the rest of it
+after the host staging. On the CPU the batch is done when its program
+returns, and that is the time taken.
+
 On the CPU the program runs on the host tensors as they are: no pinned
 buffer, no side stream, no copy. Results equal the direct per-step
 path bit for bit on both MAC limb widths, ragged tail included.
@@ -166,8 +179,9 @@ class StreamingIngest:
               the lanes; explicit overrides win; ``batch`` must be
               divisible by the lane count.
     engine:   optional SubmissionEngine to export stats through.
-    tenant:   the TPU package's per-tenant accounting tag; accepted and
-              ignored until the port has an SLO board.
+    tenant:   optional per-tenant accounting tag: with an attached
+              engine carrying an SLO board, each batch is charged to it
+              under the class ``stream``.
     """
 
     def __init__(self, pipeline, batch: int, *, depth: int = 2,
@@ -189,6 +203,7 @@ class StreamingIngest:
         self._put = put
         self._put_ids = put_ids
         self._engine = engine
+        self.tenant = tenant
         self._slots = None          # device buffers, one a slot, on the card
         self._pinned = [None] * depth   # pinned host buffers, made on first use
         self._filled = [0] * depth      # rows of each holding a chunk's data
@@ -318,13 +333,28 @@ class StreamingIngest:
 
         def drain_one():
             nonlocal stalls
-            out, real, done = inflight.popleft()
+            out, real, done, bt0, h2d, launched = inflight.popleft()
             t0 = time.perf_counter()
             for ev in done:
                 ev.synchronize()
-            stall = time.perf_counter() - t0
+            finished = time.perf_counter()
+            stall = finished - t0
             st.stall_s += stall
             stalls += 1
+            # the planes' feeds, at completion (module docstring): on
+            # the CPU the batch was done when its program returned
+            eng = self._engine
+            if eng is not None and (eng.slo is not None
+                                    or eng.profile is not None):
+                busy = (finished if done else launched) - bt0
+                if eng.slo is not None:
+                    eng.slo.observe("stream", busy, tenant=self.tenant,
+                                    rows=real)
+                if eng.profile is not None:
+                    eng.profile.on_stream(
+                        batch=self.batch, rows=real,
+                        nbytes=real * cfg.segment_size, h2d_s=h2d,
+                        dispatch_s=busy - h2d)
             if run_span is not trace.NOOP_SPAN:
                 run_span.event("stall", s=round(stall, 6))
             if real < self.batch:
@@ -364,7 +394,7 @@ class StreamingIngest:
                     else tracer.start("stream.batch", sys="stream",
                                       parent=run_span, rows=real, pad=pad)
                 try:
-                    t0 = time.perf_counter()
+                    bt0 = t0 = time.perf_counter()
                     faults.inject("stream.h2d")        # chaos seam: staging
                     if self._put is not None:
                         seg_in = self._put(self._host_chunk(chunk, batches,
@@ -385,9 +415,16 @@ class StreamingIngest:
                     # the batch span lands in the ring with its error and
                     # the journal notes the escape before it surfaces
                     bspan.set(error=repr(e)).finish()
+                    # a stream that died burns the stream SLO's budget
+                    eng = self._engine
+                    if eng is not None and eng.slo is not None:
+                        eng.slo.observe("stream", time.perf_counter() - bt0,
+                                        ok=False, tenant=self.tenant,
+                                        rows=real)
                     _flight.note("stream", "escape", error=repr(e))
                     raise
-                dispatch = time.perf_counter() - t0
+                launched = time.perf_counter()
+                dispatch = launched - t0
                 st.dispatch_s += dispatch
                 st.hist.observe(h2d + dispatch)
                 if bspan is not trace.NOOP_SPAN:
@@ -398,7 +435,7 @@ class StreamingIngest:
                 st.segments += real
                 st.bytes_in += real * cfg.segment_size
                 seg_off += self.batch
-                inflight.append((out, real, done))
+                inflight.append((out, real, done, bt0, h2d, launched))
             while inflight:
                 yield drain_one()
         finally:

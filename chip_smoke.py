@@ -108,9 +108,29 @@ limit):
    counters zeroed just before and read just after; then each kernel
    the engine ran held against its plain version at every shape in its
    program cache;
-10. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+10. slo: the engine's control planes (``obs/slo.py``,
+   ``serve/adaptive.py``, ``obs/profile.py``, ``obs/incident.py``) at
+   the main path's width with the chain's key: the SLO drill of
+   ``tests/test_slo.py`` twice (a seeded 250 ms ``engine.dispatch`` delay
+   turns verify burning: encodes of one segment are shed, the codec
+   breaker is held, a numpy repair is served on the CPU reference
+   byte-equal and a CUDA repair refused with no launch; fault-free,
+   verify walks back through warn to ok and encodes launch ``gf_apply``
+   again; equal transition logs, shed counts and incident witnesses,
+   ``slo-burning`` and ``breaker-hold`` bundles); the engine's encode
+   GiB/s of 32 segments measured on this card as the watchdog's baseline,
+   and the perf drill twice anchored on it (ok -> regressed -> ok, one
+   ``perf-regression`` bundle with both ledgers, equal witnesses); 70
+   pinned segments through ``StreamingIngest(batch=32)`` on the drill's
+   engine, byte-equal, the tail's 26 pad rows in the engine's pad
+   ledger and the profile's stream GiB/s no higher than the stream's own
+   from host bytes; phase serve's burst on engines disarmed and fully
+   armed, in turns, with each class's p50; counters zeroed just before
+   and read just after, then each kernel held against its plain version
+   at every shape in the engines' program caches;
+11. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-11. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+12. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -118,10 +138,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-12. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+13. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-13. kernel times beside the plain versions' times and each kernel's
+14. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -132,7 +152,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-14. with ``--parent DIR`` (another checkout of the repository, e.g. the
+15. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -148,7 +168,8 @@ wrapper in a CUDA graph and replays it.
 The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
 ``launches_stream``, ``launches_chaos``, ``launches_agents``,
-``launches_mesh`` and ``launches_pool`` from phases 4 to 9); the last
+``launches_mesh``, ``launches_pool`` and ``launches_slo`` from phases 4
+to 10); the last
 is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
@@ -1749,6 +1770,475 @@ def pool_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
     return launches
 
 
+# the SLO drill (phase slo): verify's p99 objective, the seeded dispatch
+# delay of its first half (5x the objective); the perf drill's delay, its
+# windows and its guard (a faulted window of 512 MiB runs at most 5
+# GiB/s, a clean one at the baseline's rate of a few hundred: a guard of
+# a quarter keeps both verdicts decisive through a slow encode or two)
+SLO_OBJECTIVE_S = 0.05
+SLO_DELAY_S = 0.25
+PERF_DELAY_S = 0.1
+PERF_WINDOW = 2
+PERF_GUARD = 0.25
+PERF_METRIC = "rs_4p8_encode_GiBps_per_chip"
+
+
+def slo_drill(cfg, key, dev, fix: dict, counts) -> tuple:
+    """One run of the SLO drill of ``tests/test_slo.py`` on an engine with
+    every plane: resilience, a tracer attached to a FlightRecorder with an
+    IncidentReporter, a SloBoard (verify: p99 ``SLO_OBJECTIVE_S``), an
+    AdaptiveBatchPolicy, ``AdmissionController(protect=("verify",),
+    shed=("encode",))`` and a ProfilePlane. Phase 1, under a seeded
+    ``engine.dispatch`` delay of ``SLO_DELAY_S``: a numpy encode of one
+    segment (tenant bulk), 4 verifications of the 96 fragments' honest
+    aggregated proof (tenant auditor, CUDA tensors; the 4th turns verify
+    burning), 3 encodes (shed), a numpy repair (served on the CPU
+    reference through the held codec breaker) and a CUDA-tensor repair
+    (refused, no kernel launched). Phase 2, fault-free: 20 rounds of an
+    encode (shed until verify is back at ok) and a verification. Returns
+    the run's record and the engine, still open."""
+    from cess_tpu_torch.obs import IncidentReporter, flight, trace
+    from cess_tpu_torch.obs.profile import ProfilePlane
+    from cess_tpu_torch.obs.slo import SloBoard, SloTarget
+    from cess_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                           ResilienceConfig, faults)
+    from cess_tpu_torch.serve import (AdaptiveBatchPolicy,
+                                      AdmissionController, AdmissionPolicy,
+                                      EngineShed, EngineUnavailable,
+                                      make_engine)
+
+    board = SloBoard((SloTarget("verify", SLO_OBJECTIVE_S, 0.01),),
+                     fast_window=4, slow_window=16, eval_every=4)
+    adaptive = AdaptiveBatchPolicy(board=board)
+    admission = AdmissionController(board, adaptive, protect=("verify",),
+                                    shed=("encode",))
+    tracer = trace.Tracer()
+    rec = flight.FlightRecorder(b"chip-slo")
+    tracer.attach_flight(rec)
+    eng = make_engine(cfg.k, cfg.m, rs_backend=dev.type, podr2_key=key,
+                      audit_backend=dev.type,
+                      policy=AdmissionPolicy(max_delay=0.002),
+                      resilience=ResilienceConfig(), tracer=tracer, slo=board,
+                      adaptive=adaptive, admission=admission,
+                      profile=ProfilePlane())
+    reporter = IncidentReporter(rec, engine=eng)
+    plan = FaultPlan.seeded(b"chip-slo", {"engine.dispatch": (
+        1.0, FaultSpec("delay", delay_s=SLO_DELAY_S))}, horizon=64)
+    blocks = cfg.blocks_per_fragment
+    out = {"sheds": 0, "verdicts": [], "encoded": [], "lat2": []}
+
+    def encode():
+        try:
+            out["encoded"].append(eng.encode(fix["bulk"], timeout=600,
+                                             tenant="bulk"))
+        except EngineShed:
+            out["sheds"] += 1
+
+    def verify():
+        t0 = time.perf_counter()
+        out["verdicts"].append(eng.verify_aggregate(
+            fix["ids"], blocks, fix["idx"], fix["nu"], fix["r"], fix["mu"],
+            fix["sigma"], timeout=600, tenant="auditor"))
+        return time.perf_counter() - t0
+
+    try:
+        with flight.armed(rec):
+            with faults.armed(plan):
+                encode()
+                for _ in range(4):
+                    verify()
+                for _ in range(3):
+                    encode()
+                out["held"] = (board.state("verify"),
+                               eng.monitors["codec"].state)
+                _sync(dev)
+                before = counts()
+                out["repaired"] = eng.reconstruct(
+                    fix["surv_host"], (1, 2), (0,), timeout=600,
+                    tenant="repairer")
+                try:
+                    eng.reconstruct(fix["surv_card"], (1, 2), (0,),
+                                    timeout=600, tenant="repairer")
+                    out["refused"] = False
+                except EngineUnavailable:
+                    out["refused"] = True
+                _sync(dev)
+                out["quiet"] = counts() == before
+            launched = counts()["gf_apply"]
+            for _ in range(20):
+                encode()
+                out["lat2"].append(verify())
+            _sync(dev)
+            out["relaunched"] = counts()["gf_apply"] - launched
+    except BaseException:
+        eng.close()
+        raise
+    out.update(log=board.transition_log(), fired=plan.fired_log(),
+               snap=eng.stats_snapshot(), witness=reporter.witness(),
+               bundles=[(b["trigger"], b["key"]) for b in reporter.bundles()],
+               admission=admission.snapshot(), pins=rec.witness())
+    return out, eng
+
+
+def perf_drill(cfg, dev, data, baseline, seed: bytes) -> dict:
+    """The perf drill of ``tests/test_profile.py`` at the main path's
+    width: an engine with a ProfilePlane anchored on ``baseline``
+    (window ``PERF_WINDOW``, guard ``PERF_GUARD``), CUDA-tensor encodes of ``data`` (32
+    segments), the first two windows under a seeded ``engine.dispatch``
+    delay of ``PERF_DELAY_S``, the next two fault-free, with a flight
+    recorder and a profile-aware IncidentReporter armed."""
+    from cess_tpu_torch.obs import IncidentReporter, flight
+    from cess_tpu_torch.obs.profile import ProfilePlane
+    from cess_tpu_torch.resilience import FaultPlan, FaultSpec, faults
+    from cess_tpu_torch.serve import make_engine
+
+    plane = ProfilePlane(baseline=baseline, guard=PERF_GUARD,
+                         window=PERF_WINDOW)
+    eng = make_engine(cfg.k, cfg.m, rs_backend=dev.type, profile=plane)
+    rec = flight.FlightRecorder(seed)
+    reporter = IncidentReporter(rec, engine=eng, profile=plane)
+    plan = FaultPlan.seeded(seed, {"engine.dispatch": (
+        1.0, FaultSpec("delay", delay_s=PERF_DELAY_S))}, horizon=16)
+    outs = []
+    try:
+        with flight.armed(rec):
+            with faults.armed(plan):
+                for _ in range(2 * PERF_WINDOW):
+                    outs.append(eng.encode(data, timeout=600))
+            for _ in range(2 * PERF_WINDOW):
+                outs.append(eng.encode(data, timeout=600))
+        progs = eng.programs.keys()
+    finally:
+        eng.close()
+    return {"plane": plane, "reporter": reporter, "fired": plan.fired_log(),
+            "first": outs[0], "last": outs[-1], "progs": progs}
+
+
+def burst(eng, cfg, load: dict) -> dict:
+    """Phase serve's burst without its stages: 8 threads, each an encode
+    of 4 segments (even threads numpy, odd CUDA tensors), a tag of its 12
+    fragments, the round's aggregated proof and its verification. Returns
+    the engine's stats snapshot; every verdict must be true."""
+    import threading
+
+    n = cfg.fragment_size
+    verdicts, errors = [], []
+
+    def worker(i):
+        try:
+            enc = eng.encode(load["payload"][i], timeout=600)
+            frs = enc.reshape(-1, n)
+            tags = eng.tag_fragments(load["ids"][i], frs, timeout=600)
+            mu, sigma = eng.prove_aggregate(frs, tags, load["idx"],
+                                            load["nu"], load["r"][i],
+                                            timeout=600)
+            verdicts.append(eng.verify_aggregate(
+                load["ids"][i], cfg.blocks_per_fragment, load["idx"],
+                load["nu"], load["r"][i], mu, sigma, timeout=600))
+        except BaseException as e:      # reported by the caller
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(load["payload"]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not errors, f"slo: a burst submitter failed: {errors[:1]}")
+    check(verdicts == [True] * len(threads), f"slo: burst verdicts {verdicts}")
+    return eng.stats_snapshot()
+
+
+def slo_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
+              nseg: int = 32, stream_segs: int = 70, stream_batch: int = 32
+              ) -> dict:
+    """The engine's control planes (``obs/slo.py``, ``serve/adaptive.py``,
+    ``obs/profile.py``, ``obs/incident.py``) at the main path's width:
+    RS(2,1), 16 MiB segments, the chain's key ``Podr2Key.generate(7)``.
+
+    (a) ``slo_drill`` twice: verify walks ok -> burning -> warn -> ok,
+    encodes are shed while it burns and then admitted (``gf_apply``
+    launches again), the held codec breaker serves the numpy repair on
+    the CPU reference byte-equal and refuses the CUDA repair with no
+    launch; the transition logs, shed counts and reporter witnesses of
+    the two runs are equal, and the reporter holds a ``slo-burning`` and
+    a ``breaker-hold`` bundle. (b) An unanchored plane measures the
+    engine's encode GiB/s over fault-free windows of CUDA-tensor encodes
+    of 32 segments: the baseline of ``rs_4p8_encode_GiBps_per_chip`` on
+    this card; then ``perf_drill`` twice, anchored on it: the watchdog
+    goes regressed at the first closed window and back to ok, one
+    ``perf-regression`` bundle embeds both ledgers, and the two runs'
+    ``witness()`` bytes are equal. (c) ``StreamingIngest(pipe,
+    batch=32, engine=eng)`` over 70 pinned segments with the drill's
+    engine, byte-equal to the forward: its ragged tail's 26 pad rows land
+    in the engine's pad ledger, and the profile's stream GiB/s is no
+    higher than the stream's own rate from host bytes. (d) The burst of
+    ``burst`` on fresh engines, disarmed and fully armed (resilience,
+    tracer, flight recorder and reporter, board with loose targets,
+    tuner, admission, profile), in turns disarmed, armed, armed,
+    disarmed: the per-class p50 of each. Counters are zeroed after the
+    inputs are made and read at the end; ``gf_apply``, ``prf_blocks`` and
+    ``podr2_tag`` must launch, and each is then held against its plain
+    version at every shape in the engines' program caches. A smaller
+    ``cfg`` and ``nseg`` rehearse the phase on the CPU (the checks that
+    count launches or pin memory need the card). Returns the launches."""
+    import contextlib
+    import types
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
+    from cess_tpu_torch.obs import IncidentReporter, flight, trace
+    from cess_tpu_torch.obs.profile import ProfilePlane
+    from cess_tpu_torch.obs.slo import SloBoard, SloTarget
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.ops.rs import TorchCodec
+    from cess_tpu_torch.resilience import ResilienceConfig
+    from cess_tpu_torch.serve import (AdaptiveBatchPolicy, StreamingIngest,
+                                      make_engine)
+
+    cfg = cfg or PipelineConfig()
+    cuda = dev.type == "cuda"
+    n, rows, blocks = cfg.fragment_size, cfg.k + cfg.m, cfg.blocks_per_fragment
+    key = podr2.Podr2Key.generate(7, device=dev)
+    codec = TorchCodec(cfg.k, cfg.m, device=dev)
+    seed = b"chip-smoke-slo-round"
+    idx, nu = podr2.gen_challenge(seed, blocks, device=dev)
+    # the drill's inputs: 32 segments' 96 fragments, their tags and one
+    # honest aggregated proof; one segment for the bulk encodes
+    data = rand_bytes((nseg, cfg.k, n), 140, dev)
+    enc = codec.encode(data)
+    frs = enc.reshape(-1, n)
+    ids = torch.stack([torch.arange(frs.shape[0], device=dev),
+                       torch.full((frs.shape[0],), 13, device=dev)], dim=1)
+    r = podr2.aggregate_coeffs(seed, ids, device=dev)
+    mu, sigma = podr2.prove_aggregate(frs, podr2.tag_fragments(key, ids, frs),
+                                      idx, nu, r)
+    fix = {"ids": ids, "idx": idx, "nu": nu, "r": r, "mu": mu,
+           "sigma": sigma, "bulk": data[:1].cpu().numpy(),
+           "bulk_enc": enc[:1].cpu().numpy(),
+           "surv_host": enc[:1, 1:].cpu().numpy(), "surv_card": enc[:1, 1:]}
+    # the burst's inputs, as phase serve's
+    per = 4
+    bdata = [rand_bytes((per, cfg.k, n), 150 + i, dev) for i in range(8)]
+    bids = [torch.stack([torch.arange(i * per * rows, (i + 1) * per * rows,
+                                      device=dev),
+                         torch.full((per * rows,), 17, device=dev)], dim=1)
+            for i in range(8)]
+    load = {"idx": idx, "nu": nu,
+            "payload": [d if i % 2 else d.cpu().numpy()
+                        for i, d in enumerate(bdata)],
+            "ids": bids, "r": [podr2.aggregate_coeffs(seed, x, device=dev)
+                               for x in bids]}
+    _sync(dev)
+    zero_counts()
+    t_phase = time.perf_counter()
+    progs = []
+
+    # (a) the SLO drill, twice
+    first, eng = slo_drill(cfg, key, dev, fix, counts)
+    progs += eng.programs.keys()
+    eng.close()
+    second, eng = slo_drill(cfg, key, dev, fix, counts)
+    want_log = (("verify", "ok", "burning", 4),
+                ("verify", "burning", "warn", 8),
+                ("verify", "warn", "ok", 20))
+    try:
+        for run in (first, second):
+            check(run["log"] == want_log, f"slo: transitions {run['log']}")
+            check(run["held"] == ("burning", "held"),
+                  f"slo: under the burn {run['held']}")
+            check(run["sheds"] == 19 and run["snap"]["classes"]["encode"][
+                "shed"] == 19, f"slo: {run['sheds']} sheds, not 19")
+            check(len(run["encoded"]) == 5 and all(
+                np.array_equal(e, fix["bulk_enc"]) for e in run["encoded"]),
+                "slo: an admitted encode differs from the direct path")
+            check(np.array_equal(run["repaired"], fix["bulk_enc"][:, :1]),
+                  "slo: the numpy repair under the hold differs")
+            check((run["refused"] and run["quiet"]) or not cuda,
+                  "slo: the CUDA repair under the hold was not refused, or "
+                  "a kernel launched")
+            check(run["relaunched"] > 0 or not cuda,
+                  "slo: gf_apply did not launch after the release")
+            check(all(v is True for v in run["verdicts"])
+                  and len(run["verdicts"]) == 24, "slo: a verdict is false")
+            check({("slo-burning", "verify"),
+                   ("breaker-hold", "codec:slo:verify")}
+                  <= set(run["bundles"]), f"slo: bundles {run['bundles']}")
+            res = run["snap"]["resilience"]
+            # on the CPU (a rehearsal) the second repair is a host one
+            check(res["degraded_batches"].get("repair") == (1 if cuda else 2)
+                  and res["breakers"]["codec"]["holds"] == 1
+                  and res["breakers"]["codec"]["state"] == "closed",
+                  f"slo: resilience {res['degraded_batches']}")
+        for k in ("log", "sheds", "witness", "bundles", "admission", "pins"):
+            check(first[k] == second[k], f"slo: the two drills' {k} differ")
+
+        # (c) the stream's pad bill, on the drill's engine
+        pipe = StoragePipeline(cfg, podr2_key=key, device=dev)
+        seg_dev = rand_bytes((stream_segs, cfg.segment_size), 160, dev)
+        src = seg_dev.cpu()
+        if cuda:
+            src = src.pin_memory()
+        ing = StreamingIngest(pipe, stream_batch, engine=eng, tenant="gateway")
+        got = ing.ingest(src)
+        want = pipe(seg_dev, torch.arange(stream_segs * rows, device=dev))
+        check(torch.equal(got["fragments"], want["fragments"])
+              and torch.equal(got["tags"], want["tags"]),
+              "slo: the stream differs from the direct forward")
+        plane = eng.profile
+        pads = plane.pads.total()
+        tail = -stream_segs % stream_batch
+        acct = [a for a in plane.snapshot()["ops"]["accounts"]
+                if a["cls"] == "stream"][0]
+        st = ing.stats
+        prof_gibs = acct["bytes"] / (1 << 30) / (acct["h2d_s"]
+                                                 + acct["dispatch_s"])
+        host_gibs = st.bytes_in / (1 << 30) / st.wall_s
+        check(pads["sources"].get("stream") == tail
+              and pads["sources"].get("engine", 0) > 0,
+              f"slo: pad bill {pads}")
+        # (on the CPU a batch's time is its staging and program alone,
+        # the run's wall holds more: the check is the card's)
+        check(prof_gibs <= host_gibs or not cuda,
+              f"slo: the profile's stream {prof_gibs:.3f} GiB/s exceeds the "
+              f"stream's own {host_gibs:.3f} GiB/s from host bytes")
+        slo_snap = eng.stats_snapshot()
+        progs += eng.programs.keys()
+        del got, want, src, seg_dev
+    finally:
+        eng.close()
+
+    # (b) the perf drill: a baseline measured on this card, then anchored
+    plane0 = ProfilePlane(window=8)
+    eng0 = make_engine(cfg.k, cfg.m, rs_backend=dev.type, profile=plane0)
+    try:
+        eng0.encode(data, timeout=600)          # the program's build
+        for _ in range(8):
+            eng0.encode(data, timeout=600)
+        base = plane0.ops.windowed_gibps()["encode"]
+        progs += eng0.programs.keys()
+    finally:
+        eng0.close()
+    check(base is not None and base > 0, f"slo: baseline {base}")
+    baseline = {PERF_METRIC: base}
+    drills = [perf_drill(cfg, dev, data, baseline, b"chip-perf")
+              for _ in range(2)]
+    want_wd = ((PERF_WINDOW, PERF_METRIC, "ok", "regressed", 1),
+               (3 * PERF_WINDOW, PERF_METRIC, "regressed", "ok", 3))
+    for d in drills:
+        wd = d["plane"].watchdog
+        check(wd.transition_log() == want_wd,
+              f"slo: watchdog transitions {wd.transition_log()}")
+        bundles = d["reporter"].bundles()
+        check([(b["trigger"], b["key"]) for b in bundles]
+              == [("perf-regression", PERF_METRIC)]
+              and {"pads", "compiles"} <= set(bundles[0]["snapshots"][
+                  "profile"]), "slo: not one perf-regression bundle with "
+              "both ledgers")
+        check(torch.equal(d["first"], enc) and torch.equal(d["last"], enc),
+              "slo: a perf drill encode differs")
+        progs += d["progs"]
+    check(drills[0]["plane"].witness() == drills[1]["plane"].witness()
+          and drills[0]["fired"] == drills[1]["fired"],
+          "slo: the perf drill's replay differs")
+    last_gibs = drills[0]["plane"].watchdog.snapshot()["last_GiBps"][
+        PERF_METRIC]
+    # a faulted window's GiB/s is at most its bytes over its delays
+    faulted_gibs = data.numel() / (1 << 30) / PERF_DELAY_S
+
+    # (d) what the planes cost: the burst, disarmed and armed in turns
+    def armed_engine():
+        board = SloBoard(tuple(SloTarget(c, 60.0) for c in
+                               ("encode", "tag", "prove", "verify")))
+        tracer = trace.Tracer()
+        rec = flight.FlightRecorder(b"chip-slo-burst")
+        tracer.attach_flight(rec)
+        e = make_engine(cfg.k, cfg.m, rs_backend=dev.type, podr2_key=key,
+                        audit_backend=dev.type,
+                        resilience=ResilienceConfig(), tracer=tracer,
+                        slo=board, adaptive=AdaptiveBatchPolicy(board=board),
+                        profile=ProfilePlane())
+        IncidentReporter(rec, engine=e)
+        return e, rec
+
+    p50 = {"disarmed": [], "armed": []}
+    walls = {"disarmed": [], "armed": []}
+    for kind in ("disarmed", "armed", "armed", "disarmed"):
+        rec = None
+        if kind == "armed":
+            e, rec = armed_engine()
+        else:
+            e = make_engine(cfg.k, cfg.m, rs_backend=dev.type, podr2_key=key,
+                            audit_backend=dev.type)
+        try:
+            t0 = time.perf_counter()
+            with (flight.armed(rec) if rec is not None
+                  else contextlib.nullcontext()):
+                snap = burst(e, cfg, load)
+            walls[kind].append(time.perf_counter() - t0)
+            progs += e.programs.keys()
+        finally:
+            e.close()
+        check(all(st["shed"] == 0 for st in snap["classes"].values()),
+              "slo: the armed burst shed a request")
+        p50[kind].append({c: st["latency_p50"] for c, st in
+                          snap["classes"].items() if st["batches"]})
+    _sync(dev)
+    phase_s = time.perf_counter() - t_phase
+    launches = counts()
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")) or not cuda,
+          f"slo: a kernel was not launched: {launches}")
+    progs = list(dict.fromkeys(progs))
+    held = serve_kernel_checks(
+        progs, types.SimpleNamespace(config=cfg, podr2_key=key), dev, bdata,
+        [codec.encode(d) for d in bdata], [ids] + bids, idx, 1, errs,
+        phase="slo")
+
+    def turns(kind):
+        return ", ".join(
+            f"{c} {'/'.join(f'{t[c] * 1e3:.3f}' for t in p50[kind])}"
+            for c in p50[kind][0])
+
+    snap_t = slo_snap["slo"]["targets"]["verify"]
+    print(f"phase slo: RS(2,1) engine with resilience, a tracer, a flight "
+          f"recorder and incident reporter, an SLO board (verify p99 "
+          f"{SLO_OBJECTIVE_S * 1e3:.0f} ms), the adaptive tuner, admission "
+          f"(protect verify, shed encode) and a profile plane, the chain's "
+          f"key; drill twice under a seeded {SLO_DELAY_S * 1e3:.0f} ms "
+          f"engine.dispatch delay then fault-free: verify transitions "
+          f"{[(a, b, c) for _, a, b, c in first['log']]} equal in both "
+          f"runs, {first['sheds']} encodes shed (EngineShed) then admitted "
+          f"with gf_apply launching again ({first['relaunched']}), the "
+          f"codec breaker held: the numpy repair served on the CPU "
+          f"reference byte-equal, the CUDA repair refused with no launch; "
+          f"bundles {first['bundles']}, reporter witnesses equal; phase-2 "
+          f"verify p50 {statistics.median(first['lat2']) * 1e3:.3f} ms, max "
+          f"{max(first['lat2']) * 1e3:.3f} ms; verify observations "
+          f"{snap_t['observations']}, budget remaining "
+          f"{snap_t['budget_remaining']}; baseline "
+          f"{PERF_METRIC} = {base:.3f} GiB/s (the engine's CUDA-tensor "
+          f"encode of [{nseg}, 2, {n}] over 8 calls, on this card), the perf "
+          f"drill twice (guard {PERF_GUARD}): watchdog ok -> regressed "
+          f"(window 1) -> ok (window 3), "
+          f"one perf-regression bundle with both ledgers, witnesses equal, "
+          f"last window {last_gibs:.3f} GiB/s (faulted windows at most "
+          f"{faulted_gibs:.3f}); stream of {stream_segs} x 16 MiB pinned "
+          f"byte-equal, pad bill {pads} (the tail's {tail} in the engine's "
+          f"ledger), profile {prof_gibs:.3f} GiB/s <= stream "
+          f"{host_gibs:.3f} GiB/s from host bytes; burst p50 ms disarmed "
+          f"(turns 1, 4): {turns('disarmed')}; armed (turns 2, 3): "
+          f"{turns('armed')}; burst walls "
+          + "/".join(f"{w * 1e3:.3f}" for w in (
+              walls["disarmed"][0], walls["armed"][0], walls["armed"][1],
+              walls["disarmed"][1]))
+          + f" ms; kernels at the engines' shapes byte-exact against their "
+          f"plain versions: {held}; phase wall {phase_s * 1e3:.3f} ms; "
+          f"launches {launches} {tag}")
+    return launches
+
+
 def parent_turns(parent: str, cases, tag: str) -> None:
     """Time each case's wrapper with the kernels built from ``parent``'s
     sources and with this tree's, in turns parent, change, change,
@@ -2086,7 +2576,11 @@ def main(argv: list[str]) -> int:
     launches_pool = pool_phase(dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 10. BASELINE geometry RS(4,8) ---------------------------------------
+    # 10. slo: the engine's control planes at the main path's width
+    launches_slo = slo_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 11. BASELINE geometry RS(4,8) ---------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -2119,7 +2613,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 11. the xor path: RS(4,8) under strategy "xor", audited and repaired -
+    # 12. the xor path: RS(4,8) under strategy "xor", audited and repaired -
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -2196,7 +2690,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 12. known answer ------------------------------------------------------
+    # 13. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -2205,7 +2699,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 13. kernel times at the main paths' shapes --------------------------
+    # 14. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -2313,6 +2807,7 @@ def main(argv: list[str]) -> int:
             "launches_agents": launches_agents.get(name, 0),
             "launches_mesh": launches_mesh.get(name, 0),
             "launches_pool": launches_pool.get(name, 0),
+            "launches_slo": launches_slo.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,

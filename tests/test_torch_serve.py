@@ -738,11 +738,35 @@ def test_warm_repair_warms_the_regen_folds():
 @pytest.mark.parametrize("plane", ["slo", "adaptive", "admission",
                                    "profile"])
 def test_unported_planes_are_refused(plane):
-    codec = rs.make_codec(2, 1, "cpu")
-    with pytest.raises(TypeError):
-        SubmissionEngine(codec, None, None, **{plane: None})
-    with pytest.raises(TypeError):
-        make_engine(2, 1, rs_backend="cpu", **{plane: None})
+    """Each control plane is accepted and exposed by the constructor and
+    by make_engine (the name is kept from when the port refused them)."""
+    from cess_tpu_torch.obs.profile import ProfilePlane
+    from cess_tpu_torch.obs.slo import SloBoard
+    from cess_tpu_torch.serve import AdaptiveBatchPolicy, AdmissionController
+
+    board = SloBoard()
+    built = {"slo": lambda: board,
+             "adaptive": lambda: AdaptiveBatchPolicy(board=board),
+             "admission": lambda: AdmissionController(board),
+             "profile": ProfilePlane}
+    for make in (lambda **kw: SubmissionEngine(rs.make_codec(2, 1, "cpu"),
+                                               None, None, **kw),
+                 lambda **kw: make_engine(2, 1, rs_backend="cpu", **kw)):
+        obj = built[plane]()
+        eng = make(**{plane: obj})
+        try:
+            assert getattr(eng, plane) is obj
+            for other in {"slo", "adaptive", "admission", "profile"} - {
+                    plane}:
+                assert getattr(eng, other) is None
+            assert eng.encode(rnd((1, 2, 64), 1)).shape == (1, 3, 64)
+            snap = eng.stats_snapshot()
+            if plane in ("slo", "adaptive", "profile"):
+                assert plane in snap
+        finally:
+            eng.close()
+        with pytest.raises(TypeError):
+            make(**{plane + "_plane": obj})
 
 
 def test_policy_and_metric_names_match_jax():
@@ -765,8 +789,8 @@ def test_policy_and_metric_names_match_jax():
         jeng.encode(rnd((2, 2, 128), 8))
         m, jm = eng.stats_metrics(), jeng.stats_metrics()
         assert m["cess_engine_encode_completed"] == 1
-        # the same names, less the SLO plane's shed counter
-        assert set(m) == {k for k in jm if not k.endswith("_shed")}
+        # the same names, the SLO plane's shed counter included
+        assert set(m) == set(jm)
         assert set(eng.stats_histograms()) == set(jeng.stats_histograms())
         assert eng.stats_histograms()[
             "cess_engine_encode_latency_seconds"].count == 1

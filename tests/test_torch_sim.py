@@ -18,6 +18,7 @@ raises). The JAX package's tag, prove and verify and its ``make_codec``
 must see no call in the port's run. No scenario here arms a fault site.
 """
 import functools
+import json
 
 import jax
 import numpy as np
@@ -167,7 +168,6 @@ def test_repair_storm_witness_equal_with_the_port_pool(monkeypatch):
             regen.RegenCodec(cfg.k, cfg.m, "cpu"),
             make_audit_backend(world.pipeline.podr2_key, "cpu"),
             resilience=ResilienceConfig(), pool=DevicePool(["cpu"] * lanes))
-        eng.profile = None          # the sim reads it; the port has none
         built.append(eng)
         return eng
 
@@ -186,3 +186,73 @@ def test_repair_storm_witness_equal_with_the_port_pool(monkeypatch):
     trips = [e for e in got.recorder.journal_tail("breaker")
              if e["kind"] == "trip"]
     assert any(e["detail"]["name"] == "codec.d0" for e in trips)
+
+
+def _timing_free(snap: dict) -> dict:
+    """A ProfilePlane snapshot without its host timings: the counts a
+    replay must reproduce."""
+    snap = json.loads(json.dumps(snap))
+    for acct in snap["ops"]["accounts"]:
+        for k in ("queue_s", "h2d_s", "dispatch_s", "sync_s"):
+            del acct[k]
+    del snap["ops"]["windowed_GiBps"]
+    for prog in snap["compiles"]["programs"].values():
+        del prog["wall_s"]
+    del snap["compiles"]["events"]
+    return snap
+
+
+def test_gateway_hotspot_pool_replays_on_the_port_with_its_profile(
+        monkeypatch):
+    """``gateway_hotspot_pool`` (a pool engine over every device, lane 0
+    raising on every dispatch, ``profile=True``): its engine becomes a
+    port engine over as many ``"cpu"`` lanes as the JAX run has devices,
+    carrying the port's ``ProfilePlane``. The same witness as the
+    JAX-only run, the same pool snapshot, and the same profile: every
+    account, pad and compile count equal (host timings aside)."""
+    from cess_tpu.obs import flight as jflight
+    from cess_tpu.resilience import faults as jfaults
+    from cess_tpu.sim import scenarios
+    from cess_tpu_torch.obs import flight as tflight
+    from cess_tpu_torch.obs.profile import ProfilePlane
+    from cess_tpu_torch.ops import rs
+    from cess_tpu_torch.ops.audit_backend import make_audit_backend
+    from cess_tpu_torch.resilience import ResilienceConfig
+    from cess_tpu_torch.resilience import faults as tfaults
+    from cess_tpu_torch.serve import DevicePool, SubmissionEngine
+
+    scenario = SCENARIOS["gateway_hotspot_pool"]
+    want = run_scenario(scenario, SEED, n_nodes=N_NODES, strict=True)
+    assert want.profile is not None
+    install_port(monkeypatch)
+    monkeypatch.setattr(tfaults, "inject", jfaults.inject)
+    monkeypatch.setattr(tflight, "note", jflight.note)
+    built = []
+
+    def pool_engine(world, profile=False, regen=False, lanes=True):
+        assert profile and not regen and lanes is True
+        cfg = world.pipeline.config
+        eng = SubmissionEngine(
+            rs.make_codec(cfg.k, cfg.m, "cpu"),
+            make_audit_backend(world.pipeline.podr2_key, "cpu"),
+            resilience=ResilienceConfig(),
+            pool=DevicePool(["cpu"] * len(jax.devices())),
+            profile=ProfilePlane())
+        built.append(eng)
+        return eng
+
+    monkeypatch.setattr(scenarios, "_pool_engine", pool_engine)
+    got = run_scenario(scenario, SEED, n_nodes=N_NODES, strict=True)
+    assert got.witness() == want.witness()
+    assert got.rounds_run == want.rounds_run == scenario.rounds
+    (eng,) = built
+    plane = eng.profile
+    assert got.pool == want.pool
+    assert got.pool["lanes"][0]["breakers"]["codec"] == "open"
+    assert _timing_free(got.profile) == _timing_free(want.profile)
+    assert got.profile["watchdog"] is None
+    pads = plane.pads.total()
+    assert pads["served"] > 0 and set(pads["sources"]) == {"engine"}
+    assert plane.ops.canon()["observations"] > 0
+    assert plane.compiles.canon()["builds"] > 0
+    assert got.reporter.witness() == want.reporter.witness()
