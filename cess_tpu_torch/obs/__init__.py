@@ -13,7 +13,8 @@ on):
               a seeded baseline, bounded, anomaly-first retention) and
               the count-sequenced journal subsystems note into.
 - prom.py     the mergeable latency histograms behind the engine's and
-              the stream's ``cess_engine_*`` histogram families.
+              the stream's ``cess_engine_*`` histogram families, their
+              wire form and the exposition's label escaping.
 - slo.py      SloBoard: SloTarget objectives evaluated with
               observation-count multi-window burn rates, per-tenant x
               per-class accounting, and the transition listeners the
@@ -25,6 +26,17 @@ on):
               breaker trips and holds, shed storms, thread escapes,
               perf regressions) into rate-limited, deduplicated
               postmortem bundles with a replay witness.
+- fleet.py    FleetPlane: metric federation across nodes, the global
+              SLO view, cross-node trace stitching and the MAD
+              straggler detector (``("fleet", "outlier")`` edges).
+- chainwatch.py ChainWatch: consensus health, the storage-market
+              ledger and the chain anomaly detector (``("chain",
+              "anomaly")`` edges), over duck-typed chain objects.
+- custody.py  CustodyPlane: per-fragment custody lineage, erasure
+              margins and the at-risk detector (``("custody",
+              "at_risk")`` edges).
+
+``serve/remediate.py`` acts on the detectors' edges.
 
 Wire-up: ``serve.make_engine(tracer=..., slo=..., profile=...)`` or
 ``trace.arm(tracer)``; ``tracer.attach_flight(recorder)``,
@@ -33,7 +45,8 @@ Wire-up: ``serve.make_engine(tracer=..., slo=..., profile=...)`` or
 from .flight import FlightRecorder
 from .incident import IncidentReporter
 from .profile import ProfilePlane
-from .prom import LATENCY_BUCKETS_S, Histogram
+from .prom import (LATENCY_BUCKETS_S, Histogram, escape_label,
+                   format_labels, format_le, render_histogram)
 from .slo import DEFAULT_TARGETS, SloBoard, SloTarget, parse_targets
 from .trace import (NOOP_SPAN, Span, Tracer, arm, armed, armed_tracer,
                     context, current_span, disarm, event, span)
@@ -56,7 +69,11 @@ __all__ = [
     "context",
     "current_span",
     "disarm",
+    "escape_label",
     "event",
+    "format_labels",
+    "format_le",
     "parse_targets",
+    "render_histogram",
     "span",
 ]

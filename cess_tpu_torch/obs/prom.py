@@ -1,11 +1,15 @@
-"""Prometheus histogram for the engine's latency families.
+"""Prometheus histograms and the text exposition's helpers.
 
-The port's own copy of what ``cess_tpu/obs/prom.py`` gives the serving
-plane: fixed bucket bounds, cumulative ``(le, count)`` snapshots,
-``_sum`` and ``_count``, and an exact merge of same-bound histograms
-(the engine sums its attached streams' histograms into one
-family). Observations come from the batcher and ingest threads while a
-reader snapshots, so every access takes the histogram's own lock.
+The port's own copy of ``cess_tpu/obs/prom.py``: fixed bucket bounds,
+cumulative ``(le, count)`` snapshots, ``_sum`` and ``_count``, an exact
+merge of same-bound histograms (the engine sums its attached streams'
+histograms into one family) and its inverse of the wire form
+(``Histogram.from_cumulative``, what a federator parses back out of
+``_bucket{le=...}`` samples); the counter-reset clamp a federator
+applies between scrapes (``counter_delta``); and the exposition's
+label escaping and histogram rendering, byte for byte the reference's.
+Observations come from the batcher and ingest threads while a reader
+snapshots, so every access takes the histogram's own lock.
 """
 from __future__ import annotations
 
@@ -67,6 +71,29 @@ class Histogram:
         with self._mu:
             return self._count
 
+    @classmethod
+    def from_cumulative(cls, buckets, total_sum: float) -> "Histogram":
+        """Rebuild a histogram from its wire form, the CUMULATIVE
+        ``[(le_bound, count_le)...]`` list :meth:`snapshot` produces; the
+        last entry must be the ``+Inf`` bucket and counts must be
+        nondecreasing. Inverse of :meth:`snapshot`, so a federator can
+        reuse :meth:`merge` across nodes."""
+        pairs = [(float(b), int(n)) for b, n in buckets]
+        if len(pairs) < 2 or not math.isinf(pairs[-1][0]):
+            raise ValueError("cumulative buckets must end with +Inf")
+        if any(n2 < n1 for (_, n1), (_, n2) in zip(pairs, pairs[1:])):
+            raise ValueError("cumulative bucket counts must be "
+                             "nondecreasing")
+        h = cls(tuple(b for b, _ in pairs[:-1]))
+        prev = 0
+        with h._mu:
+            for i, (_, acc) in enumerate(pairs):
+                h._counts[i] = acc - prev
+                prev = acc
+            h._count = pairs[-1][1]
+            h._sum = float(total_sum)
+        return h
+
     def quantile(self, q: float) -> float:
         """The q-quantile (0 <= q <= 1) by linear interpolation inside
         the owning bucket, as ``histogram_quantile`` computes it; above
@@ -103,3 +130,61 @@ class Histogram:
             buckets.append((bound, acc))
         buckets.append((math.inf, acc + counts[-1]))
         return {"buckets": buckets, "sum": total_sum, "count": total_n}
+
+
+def counter_delta(prev: float, cur: float) -> float:
+    """The increment between two scrapes of a MONOTONIC counter, clamped
+    for restarts: a counter moves backwards only because its process
+    restarted at zero, so the increment since the previous scrape is at
+    least ``cur``, never the negative ``cur - prev``."""
+    prev, cur = float(prev), float(cur)
+    if cur >= prev:
+        return cur - prev
+    return cur
+
+
+def format_le(bound: float) -> str:
+    """Prometheus ``le`` label value: ``+Inf`` for the overflow bucket,
+    shortest exact decimal otherwise."""
+    if math.isinf(bound):
+        return "+Inf"
+    return f"{bound:g}"
+
+
+def escape_label(value: str) -> str:
+    """Exposition-format (0.0.4) label-value escaping: backslash,
+    double quote and newline. An unescaped ``"`` in a caller-supplied
+    value would truncate the label and corrupt every later sample."""
+    return (str(value).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def format_labels(labels: dict | None) -> str:
+    """``{k="v",...}`` with escaped values, sorted by key (a
+    deterministic exposition), or ``""`` for an unlabeled sample."""
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{escape_label(v)}"'
+                     for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+def render_histogram(name: str, hist: Histogram,
+                     labels: dict | None = None,
+                     type_line: bool = True) -> list[str]:
+    """Text-exposition lines for one histogram family: the TYPE line,
+    cumulative buckets, ``_sum`` and ``_count``. ``labels`` ride every
+    sample (``le`` merged in on the bucket lines); ``type_line=False``
+    skips the TYPE line, which the format allows once a family, for a
+    labeled family's later label sets."""
+    snap = hist.snapshot()
+    base = dict(labels or {})
+    lines = [f"# TYPE {name} histogram"] if type_line else []
+    for bound, n in snap["buckets"]:
+        lines.append(f"{name}_bucket"
+                     f"{format_labels({**base, 'le': format_le(bound)})}"
+                     f" {n}")
+    tail = format_labels(base)
+    lines.append(f"{name}_sum{tail} {snap['sum']}")
+    lines.append(f"{name}_count{tail} {snap['count']}")
+    return lines

@@ -15,6 +15,9 @@ per-device worker lanes the engine spreads its batches over
 knobs tuned from the live latency signal (``AdaptiveBatchPolicy``) and
 SLO-gated, deadline-aware admission (``AdmissionController``) over an
 ``obs.SloBoard`` (``make_engine(slo=..., adaptive=..., admission=...)``).
+``remediate.py``: the ``RemediationPlane``, a count-sequenced policy
+engine over the detectors' flight-note edges that holds and releases the
+engine's and the pool lanes' breakers (``bind_engine``).
 The direct synchronous path stays the default wherever no engine is
 configured.
 """
@@ -24,6 +27,7 @@ from .policy import (CLASS_PRIORITY, CLASSES, AdmissionPolicy, EngineClosed,
                      EngineError, EngineSaturated, EngineShed, EngineTimeout,
                      EngineUnavailable)
 from .pool import DeviceLane, DevicePool
+from .remediate import Policy, RemediationPlane, default_policies
 from .stats import EngineStats, StreamStats
 from .stream import StreamingIngest
 
@@ -43,8 +47,11 @@ __all__ = [
     "EngineStats",
     "EngineTimeout",
     "EngineUnavailable",
+    "Policy",
+    "RemediationPlane",
     "StreamStats",
     "StreamingIngest",
     "SubmissionEngine",
+    "default_policies",
     "make_engine",
 ]

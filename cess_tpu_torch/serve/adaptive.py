@@ -267,8 +267,8 @@ class AdmissionController:
 
     def attach_fleet(self, fleet_board, *, view: str = "quorum") -> None:
         """Extend protection fleet-wide: subscribe to a fleet board (any
-        object with ``add_listener(fn(cls, view, old, new))``, as the
-        TPU package's ``obs.fleet.FleetBoard``) so a ``burning``
+        object with ``add_listener(fn(cls, view, old, new))``, as
+        ``obs.fleet.FleetBoard``) so a ``burning``
         transition of the chosen
         global view (``quorum`` by default — a strict majority of nodes
         burning; ``worst`` for any single node) on a protected class

@@ -289,8 +289,9 @@ class SubmissionEngine:
     ``slo``, ``adaptive``, ``admission``, ``profile``: the control planes
     (module docstring)."""
 
-    # op class -> which backend's breaker gates it
-    _BACKEND_OF = {"encode": "codec", "repair": "codec",
+    # op class -> which backend's breaker gates it; "decode" (a repair
+    # op) names the codec for the remediation plane's pin keys
+    _BACKEND_OF = {"encode": "codec", "repair": "codec", "decode": "codec",
                    "tag": "audit", "verify_batch": "audit",
                    "verify_agg": "audit", "prove": "audit"}
 

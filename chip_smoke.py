@@ -128,9 +128,28 @@ limit):
    armed, in turns, with each class's p50; counters zeroed just before
    and read just after, then each kernel held against its plain version
    at every shape in the engines' program caches;
-11. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+11. remediate: the remediation loop (``serve/remediate.py``, fed by
+   ``obs/profile.py``'s watchdog and ``obs/fleet.py``'s straggler
+   detector) at the main path's width with the chain's key: the engine's
+   encode and repair GiB/s of 32 segments measured on this card as the
+   watchdog's baseline; the pin drill twice (a single-device engine: a
+   seeded 100 ms ``engine.dispatch`` delay regresses encode, ``perf-pin``
+   holds the codec breaker on the next tick, a CUDA encode is refused
+   with no launch and a numpy one served on the CPU reference byte-equal,
+   the re-probe releases it and ``gf_apply`` launches again, the watchdog
+   returns to ok; a repair regression pins again and its bundle carries
+   the journal) and the quarantine drill twice (``DevicePool([card] *
+   4)``, a seeded 80 ms delay at ``engine.dispatch.encode.d2``: the
+   straggler detector flags ``card.d2`` alone over window medians of 8
+   batches a lane, ``straggler-quarantine`` holds lane 2's breakers on
+   the next tick, 16 encodes land on lanes 0, 1 and 3 byte-equal, the
+   re-probe returns lane 2 to service); equal plane witnesses and
+   placement logs in each pair; counters zeroed just before and read
+   just after, then each kernel held against its plain version at every
+   shape in the engines' program caches;
+12. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-12. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+13. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -138,10 +157,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-13. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+14. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-14. kernel times beside the plain versions' times and each kernel's
+15. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -152,7 +171,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-15. with ``--parent DIR`` (another checkout of the repository, e.g. the
+16. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -168,8 +187,8 @@ wrapper in a CUDA graph and replays it.
 The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
 ``launches_stream``, ``launches_chaos``, ``launches_agents``,
-``launches_mesh``, ``launches_pool`` and ``launches_slo`` from phases 4
-to 10); the last
+``launches_mesh``, ``launches_pool``, ``launches_slo`` and
+``launches_remediate`` from phases 4 to 11); the last
 is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
@@ -1880,6 +1899,24 @@ def slo_drill(cfg, key, dev, fix: dict, counts) -> tuple:
     return out, eng
 
 
+def engine_gibps(cfg, dev, cls: str, call, runs: int = 8) -> tuple:
+    """A class's GiB/s through the engine on this device: ``call(eng)``
+    once to build its program, then ``runs`` times on an engine with an
+    unanchored ProfilePlane of window ``runs``; returns the window's GiB/s
+    (a watchdog's baseline) and the engine's program keys."""
+    from cess_tpu_torch.obs.profile import ProfilePlane
+    from cess_tpu_torch.serve import make_engine
+
+    plane = ProfilePlane(window=runs)
+    eng = make_engine(cfg.k, cfg.m, rs_backend=dev.type, profile=plane)
+    try:
+        for _ in range(runs + 1):
+            call(eng)
+        return plane.ops.windowed_gibps()[cls], eng.programs.keys()
+    finally:
+        eng.close()
+
+
 def perf_drill(cfg, dev, data, baseline, seed: bytes) -> dict:
     """The perf drill of ``tests/test_profile.py`` at the main path's
     width: an engine with a ProfilePlane anchored on ``baseline``
@@ -2110,16 +2147,9 @@ def slo_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
         eng.close()
 
     # (b) the perf drill: a baseline measured on this card, then anchored
-    plane0 = ProfilePlane(window=8)
-    eng0 = make_engine(cfg.k, cfg.m, rs_backend=dev.type, profile=plane0)
-    try:
-        eng0.encode(data, timeout=600)          # the program's build
-        for _ in range(8):
-            eng0.encode(data, timeout=600)
-        base = plane0.ops.windowed_gibps()["encode"]
-        progs += eng0.programs.keys()
-    finally:
-        eng0.close()
+    base, keys = engine_gibps(cfg, dev, "encode",
+                              lambda e: e.encode(data, timeout=600))
+    progs += keys
     check(base is not None and base > 0, f"slo: baseline {base}")
     baseline = {PERF_METRIC: base}
     drills = [perf_drill(cfg, dev, data, baseline, b"chip-perf")
@@ -2236,6 +2266,492 @@ def slo_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
           + f" ms; kernels at the engines' shapes byte-exact against their "
           f"plain versions: {held}; phase wall {phase_s * 1e3:.3f} ms; "
           f"launches {launches} {tag}")
+    return launches
+
+
+# the remediation drills (phase remediate). The pin drill's second
+# regression is of the repair class, a watchdog metric of its own: the
+# incident reporter drops a repeated (trigger, key), so a second
+# regression of the encode metric would leave no bundle. The straggler
+# drill: lane 2's seeded delay (tens of times a clean batch of 4
+# segments), and the waves of 4 encodes before the scan (window medians
+# over 8 batches a lane) and under the quarantine
+REPAIR_METRIC = "rs_2p1_repair_GiBps_per_chip"
+STRAGGLER_DELAY_S = 0.08
+STRAGGLER_WAVES = 8
+QUARANTINE_WAVES = 4
+
+
+def pin_drill(cfg, key, dev, fix: dict, baseline: dict, counts,
+              seed: bytes) -> dict:
+    """Drill (a) of phase remediate: a single-device engine with
+    resilience and a ProfilePlane anchored on ``baseline`` (encode and
+    repair, window ``PERF_WINDOW``, guard ``PERF_GUARD``), a
+    RemediationPlane with the default policies bound to it and listening
+    on an armed FlightRecorder, and an IncidentReporter with the plane.
+    One plane tick a round. Under a seeded ``engine.dispatch`` delay of
+    ``PERF_DELAY_S`` two CUDA encodes of 32 segments turn the encode
+    metric regressed and the next tick pins it (``perf-pin`` holds the
+    codec breaker). Delay lifted: a CUDA encode is refused with no
+    launch, a numpy one is served on the CPU reference; the re-probe
+    releases the pin after ``release_after`` ticks (the watchdog sees
+    only the reference path while pinned), and three CUDA encodes launch
+    ``gf_apply`` again and bring the watchdog back to ok. After the
+    cooldown, two delayed reconstructs turn the repair metric regressed:
+    the pin fires again and that regression's bundle carries the
+    journal. Then the re-probe, a clean reconstruct and the tags of the
+    encoded fragments. Returns the run's record."""
+    import torch
+    from cess_tpu_torch.obs import IncidentReporter, flight
+    from cess_tpu_torch.obs.profile import ProfilePlane
+    from cess_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                           ResilienceConfig, faults)
+    from cess_tpu_torch.serve import (EngineUnavailable, RemediationPlane,
+                                      make_engine)
+
+    profile = ProfilePlane(baseline=baseline, guard=PERF_GUARD,
+                           window=PERF_WINDOW,
+                           tracked={"encode": PERF_METRIC,
+                                    "repair": REPAIR_METRIC})
+    eng = make_engine(cfg.k, cfg.m, rs_backend=dev.type, podr2_key=key,
+                      audit_backend=dev.type, resilience=ResilienceConfig(),
+                      profile=profile)
+    rec = flight.FlightRecorder(seed)
+    plane = RemediationPlane(seed)
+    rec.add_listener(plane.on_note)
+    plane.bind_engine(eng)
+    reporter = IncidentReporter(rec, engine=eng, remediation=plane)
+    plan = FaultPlan.seeded(seed, {"engine.dispatch": (
+        1.0, FaultSpec("delay", delay_s=PERF_DELAY_S))}, horizon=64)
+    mon = eng.monitors["codec"]
+    out = {"states": [], "tick_s": []}
+
+    def round_(fn=None):
+        if fn is not None:
+            fn()
+        t = time.perf_counter()
+        plane.tick()
+        out["tick_s"].append(time.perf_counter() - t)
+        out["states"].append(mon.state)
+
+    def encode():
+        got = eng.encode(fix["data"], timeout=600)
+        check(torch.equal(got, fix["enc"]),
+              "remediate: a pin drill encode differs")
+
+    def repair():
+        got = eng.reconstruct(fix["surv_card"], (1, 2), (0,), timeout=600)
+        check(torch.equal(got, fix["enc"][:, :1]),
+              "remediate: a pin drill reconstruct differs")
+
+    t0 = time.perf_counter()
+    try:
+        with flight.armed(rec):
+            with faults.armed(plan):
+                round_(encode)
+                round_(encode)               # window 1 closes: regressed
+            out["pinned"] = mon.state
+            _sync(dev)
+            before = counts()
+            try:
+                eng.encode(fix["data"], timeout=600)
+                out["refused"] = False
+            except EngineUnavailable:
+                out["refused"] = True
+            _sync(dev)
+            out["quiet"] = counts() == before
+            out["host"] = eng.encode(fix["bulk"], timeout=600)
+            round_()
+            while not plane.journal()[-1]["event"] == "release":
+                check(plane.count < 16, "remediate: the pin never released")
+                round_()
+            out["released"] = mon.state
+            launched = counts()["gf_apply"]
+            for _ in range(3):
+                round_(encode)
+            out["relaunched"] = counts()["gf_apply"] - launched
+            for _ in range(2):
+                round_()                     # past the cooldown
+            with faults.armed(plan):
+                round_(repair)
+                round_(repair)               # the repair metric regresses
+            out["pinned2"] = mon.state
+            for _ in range(8):
+                round_()
+            round_(repair)
+            out["tags"] = eng.tag_fragments(fix["ids"], fix["frs"],
+                                            timeout=600)
+        _sync(dev)
+        out["wall_s"] = time.perf_counter() - t0
+        out["progs"] = eng.programs.keys()
+    finally:
+        eng.close()
+    edges = {e["id"]: e for e in plane.edge_log()}
+    out.update(
+        witness=plane.witness(), journal=plane.journal(),
+        lag=[e["tick"] - edges[e["edge"]]["tick"] for e in plane.journal()
+             if e["event"] == "fire"],
+        watchdog=profile.watchdog.transition_log(),
+        bundles=[(b["trigger"], b["key"],
+                  len(b["snapshots"].get("remediation", {}).get(
+                      "journal", ()))) for b in reporter.bundles()],
+        degraded=eng.stats_snapshot()["resilience"]["degraded_batches"],
+        fired=plan.fired_log())
+    return out
+
+
+def quarantine_drill(cfg, key, dev, fix: dict, seed: bytes) -> dict:
+    """Drill (b) of phase remediate: an engine with resilience and a
+    tracer over ``DevicePool([card] * 4)``, one request a batch, a
+    RemediationPlane with the default policies bound to it, a port
+    FleetPlane("card") whose StragglerDetector (window 16, k 4, min_nodes
+    4) reads each lane's encode batch wall (its ``device.encode`` span) as
+    instance ``card.d<i>``, an IncidentReporter with the plane. Each wave
+    submits 4 CUDA encodes of 4 segments while the card's device lock is
+    held, so they are placed on the 4 lanes before any runs. A warm wave,
+    then ``STRAGGLER_WAVES`` under a seeded ``engine.dispatch.encode.d2``
+    delay of ``STRAGGLER_DELAY_S``; the scan then flags ``card.d2`` and
+    the next tick quarantines it (every breaker of lane 2 held). One
+    round a wave: ``QUARANTINE_WAVES`` waves placed on lanes 0, 1 and 3,
+    then plain rounds until the re-probe releases the lane; the plan
+    disarmed, a last wave is served by all four lanes and its fragments
+    are tagged. Every output byte-equal to the direct path. Returns the
+    run's record."""
+    import torch
+    from cess_tpu_torch.obs import IncidentReporter, flight, trace
+    from cess_tpu_torch.obs.fleet import FleetPlane, StragglerDetector
+    from cess_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                           ResilienceConfig, faults)
+    from cess_tpu_torch.serve import (AdmissionPolicy, DevicePool,
+                                      RemediationPlane, make_engine)
+
+    tracer = trace.Tracer()
+    eng = make_engine(cfg.k, cfg.m, rs_backend=dev.type, podr2_key=key,
+                      audit_backend=dev.type, resilience=ResilienceConfig(),
+                      pool=DevicePool([dev] * 4), tracer=tracer,
+                      policy=AdmissionPolicy(max_batch_requests=1))
+    rec = flight.FlightRecorder(seed)
+    plane = RemediationPlane(seed)
+    rec.add_listener(plane.on_note)
+    plane.bind_engine(eng)
+    fleet = FleetPlane("card")
+    raw = StragglerDetector()
+    reporter = IncidentReporter(rec, engine=eng, remediation=plane)
+    plan = FaultPlan.seeded(seed, {"engine.dispatch.encode.d2": (
+        1.0, FaultSpec("delay", delay_s=STRAGGLER_DELAY_S))}, horizon=64)
+    walls = {i: [] for i in range(4)}
+    seen = [0]
+    out = {"waves": [], "tick_s": [], "seal_s": []}
+
+    def wave():
+        """4 encodes placed before any runs; each lane's batch wall."""
+        log0 = len(eng.pool.placement_log())
+        # the lanes' batches wait on the device lock while the batcher
+        # places all four: placement never races a finishing batch
+        with eng._device_locks[dev]:
+            futs = [eng.submit_encode(x) for x in fix["wave"]]
+            deadline = time.monotonic() + 60
+            while len(eng.pool.placement_log()) < log0 + len(futs):
+                check(time.monotonic() < deadline,
+                      "remediate: a wave was not placed")
+                time.sleep(0.0005)
+        outs = [f.result(600) for f in futs]
+        for got, want in zip(outs, fix["wave_enc"]):
+            check(torch.equal(got, want),
+                  "remediate: a quarantine drill encode differs")
+        lanes = [row[4] for row in eng.pool.placement_log()[log0:]]
+        out["waves"].append(lanes)
+        got = {}
+        for sp in tracer.finished():
+            if sp["span_id"] > seen[0] and sp["name"] == "device.encode":
+                got[sp["attrs"]["device"]] = sp["dur_s"]
+        seen[0] = max([seen[0]] + [sp["span_id"]
+                                   for sp in tracer.finished()])
+        return outs, got
+
+    def observe(got):
+        # the plane's detector reads each wall on a grid of the delay (a
+        # clean wall reads 0, a delayed one the delay), so the outlier
+        # edge's detail, part of the plane's witness, replays exactly; a
+        # second detector reads the raw walls
+        for i, wall in sorted(got.items()):
+            walls[i].append(wall)
+            raw.observe(f"card.d{i}", "encode_wall_s", wall)
+            fleet.stragglers.observe(
+                f"card.d{i}", "encode_wall_s",
+                round(wall / STRAGGLER_DELAY_S) * STRAGGLER_DELAY_S)
+
+    def round_(fn=None):
+        if fn is not None:
+            fn()
+        t = time.perf_counter()
+        fleet.seal_round()
+        t1 = time.perf_counter()
+        plane.tick()
+        out["seal_s"].append(t1 - t)
+        out["tick_s"].append(time.perf_counter() - t1)
+
+    t0 = time.perf_counter()
+    try:
+        wave()                                          # the warm wave
+        with faults.armed(plan):
+            for _ in range(STRAGGLER_WAVES):
+                observe(wave()[1])
+            out["medians"] = {i: statistics.median(w)
+                              for i, w in walls.items()}
+            raw.scan()                       # no recorder armed: no edge
+            out["raw_outliers"] = raw.snapshot()["outliers"]
+        with flight.armed(rec):
+            with faults.armed(plan):
+                round_()                     # the scan, then the tick
+                out["outliers"] = fleet.stragglers.snapshot()["outliers"]
+                out["held"] = {
+                    f"{b}.d{lane.index}": m.state
+                    for lane in eng.pool.lanes
+                    for b, m in sorted(lane.monitors.items())}
+                quarantined = len(out["waves"])
+                for _ in range(QUARANTINE_WAVES):
+                    round_(lambda: observe(wave()[1]))
+                out["quarantined"] = [
+                    lane for w in out["waves"][quarantined:] for lane in w]
+                while plane.engagements():
+                    check(plane.count < 40,
+                          "remediate: the quarantine never released")
+                    round_()
+            outs, got = wave()
+            out["returned"] = out["waves"][-1]
+            out["returned_walls"] = got
+            frs = torch.cat(outs).reshape(-1, cfg.fragment_size)
+            out["tags"] = (eng.tag_fragments(fix["wave_ids"], frs,
+                                             timeout=600), frs)
+        _sync(dev)
+        out["wall_s"] = time.perf_counter() - t0
+        out["progs"] = eng.programs.keys()
+        out["placements"] = eng.pool.placement_log()
+        out["released"] = {f"{b}.d{lane.index}": m.state
+                           for lane in eng.pool.lanes
+                           for b, m in sorted(lane.monitors.items())}
+    finally:
+        eng.close()
+    edges = {e["id"]: e for e in plane.edge_log()}
+    out.update(
+        witness=plane.witness(), journal=plane.journal(),
+        lag=[e["tick"] - edges[e["edge"]]["tick"] for e in plane.journal()
+             if e["event"] == "fire"],
+        notes=[e["detail"] for e in rec.journal_tail("fleet")
+               if e["kind"] == "outlier"],
+        bundles=[(b["trigger"], b["key"]) for b in reporter.bundles()],
+        fired=plan.fired_log())
+    return out
+
+
+def remediate_phase(dev, zero_counts, counts, errs: dict, tag: str,
+                    cfg=None, nseg: int = 32, wave_segs: int = 4) -> dict:
+    """The remediation loop (``serve/remediate.py`` acting on the engine's
+    breakers and the pool lanes', fed by ``obs/profile.py``'s watchdog and
+    ``obs/fleet.py``'s straggler detector) at the main path's width:
+    RS(2,1), 16 MiB segments, the chain's key ``Podr2Key.generate(7)``.
+
+    The engine's encode and repair GiB/s of 32 segments are measured on
+    this card (``engine_gibps``) as the watchdog's baseline; then
+    ``pin_drill`` twice and ``quarantine_drill`` twice, each run with the
+    same seed as its twin: equal plane witnesses, firings and placement
+    logs. Counters are zeroed after the inputs are made and read at the
+    end; ``gf_apply``, ``prf_blocks`` and ``podr2_tag`` must launch, and
+    each is then held against its plain version at every shape in the
+    engines' program caches. A smaller ``cfg`` and ``nseg`` rehearse the
+    phase on the CPU (the checks that count launches or refuse card
+    members need the card). Returns the launches."""
+    import types
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch.models.pipeline import PipelineConfig
+    from cess_tpu_torch.ops import podr2
+    from cess_tpu_torch.ops.rs import TorchCodec
+
+    cfg = cfg or PipelineConfig()
+    cuda = dev.type == "cuda"
+    n = cfg.fragment_size
+    key = podr2.Podr2Key.generate(7, device=dev)
+    codec = TorchCodec(cfg.k, cfg.m, device=dev)
+
+    def id_pairs(lo, hi, tag_):
+        return torch.stack([torch.arange(lo, hi, device=dev),
+                            torch.full((hi - lo,), tag_, device=dev)], dim=1)
+
+    data = rand_bytes((nseg, cfg.k, n), 170, dev)
+    enc = codec.encode(data)
+    frs = enc.reshape(-1, n)
+    wave = [rand_bytes((wave_segs, cfg.k, n), 180 + i, dev)
+            for i in range(4)]
+    wave_enc = [codec.encode(x) for x in wave]
+    nwave = 4 * wave_segs * (cfg.k + cfg.m)
+    fix = {"data": data, "enc": enc, "frs": frs,
+           "ids": id_pairs(0, frs.shape[0], 21),
+           "bulk": data[:1].cpu().numpy(), "bulk_enc": enc[:1].cpu().numpy(),
+           "surv_card": enc[:, 1:].contiguous(), "wave": wave,
+           "wave_enc": wave_enc, "wave_ids": id_pairs(0, nwave, 23)}
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_phase = time.perf_counter()
+    progs = []
+    base_e, keys = engine_gibps(cfg, dev, "encode",
+                                lambda e: e.encode(data, timeout=600))
+    progs += keys
+    base_r, keys = engine_gibps(cfg, dev, "repair", lambda e: e.reconstruct(
+        fix["surv_card"], (1, 2), (0,), timeout=600))
+    progs += keys
+    check(base_e and base_r, f"remediate: baselines {base_e}, {base_r}")
+    baseline = {PERF_METRIC: base_e, REPAIR_METRIC: base_r}
+    pins = [pin_drill(cfg, key, dev, fix, baseline, counts,
+                      b"chip-remediate-pin") for _ in range(2)]
+    lanes = [quarantine_drill(cfg, key, dev, fix, b"chip-remediate-lane")
+             for _ in range(2)]
+    _sync(dev)
+    phase_s = time.perf_counter() - t_phase
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")) or not cuda,
+          f"remediate: a kernel was not launched: {launches}")
+
+    want_tags = podr2.tag_fragments(key, fix["ids"], frs)
+    hold = "codec:remediation:perf-pin"
+    for run in pins:
+        check(run["pinned"] == "held" and run["pinned2"] == "held"
+              and run["released"] == "closed"
+              and run["states"][-1] == "closed",
+              f"remediate: codec breaker {run['states']}")
+        check(run["lag"] == [1, 1], f"remediate: pin lag {run['lag']}")
+        check((run["refused"] and run["quiet"]) or not cuda,
+              "remediate: the CUDA encode under the pin was not refused, or "
+              "a kernel launched")
+        check(np.array_equal(run["host"], fix["bulk_enc"]),
+              "remediate: the numpy encode under the pin differs")
+        check(run["relaunched"] > 0 or not cuda,
+              "remediate: gf_apply did not launch after the release")
+        # on the CPU (a rehearsal) the reference path pinned to is as
+        # fast as the primary, so the watchdog's recovery edge releases
+        # the first pin before the re-probe does
+        check([(e["event"], e["policy"], e["key"], e["reason"])
+               for e in run["journal"]] == [
+            ("fire", "perf-pin", PERF_METRIC, ""),
+            ("release", "perf-pin", PERF_METRIC,
+             "re-probe" if cuda else "recovered"),
+            ("fire", "perf-pin", REPAIR_METRIC, ""),
+            ("release", "perf-pin", REPAIR_METRIC, "re-probe")]
+            and all(e["applied"] for e in run["journal"]),
+            f"remediate: pin journal {run['journal']}")
+        check([t[1:4] for t in run["watchdog"]] == [
+            (PERF_METRIC, "ok", "regressed"), (PERF_METRIC, "regressed", "ok"),
+            (REPAIR_METRIC, "ok", "regressed")]
+            and run["watchdog"][0][4] == 1 and run["watchdog"][2][4] == 1,
+            f"remediate: watchdog {run['watchdog']}")
+        b = {(t, k_): j for t, k_, j in run["bundles"]}
+        check(b.get(("perf-regression", PERF_METRIC)) == 0
+              and b.get(("breaker-hold", hold), 0) > 0
+              and b.get(("perf-regression", REPAIR_METRIC), 0) > 0,
+              f"remediate: bundles {run['bundles']}")
+        # on the CPU the "CUDA" encode is a host one, served as well
+        check(run["degraded"] == {"encode": 1 if cuda else 2},
+              f"remediate: degraded {run['degraded']}")
+        check(torch.equal(run["tags"], want_tags),
+              "remediate: the pin drill's tags differ")
+        progs += run["progs"]
+    check(pins[0]["witness"] == pins[1]["witness"]
+          and pins[0]["fired"] == pins[1]["fired"],
+          "remediate: the pin drill's replay differs")
+    for run in lanes:
+        clean = [run["medians"][i] for i in (0, 1, 3)]
+        check(run["outliers"] == run["raw_outliers"]
+              == ["card.d2/encode_wall_s"]
+              and [d["instance"] for d in run["notes"]] == ["card.d2"],
+              f"remediate: outliers {run['outliers']}, raw walls "
+              f"{run['raw_outliers']}, {run['notes']}")
+        check(run["medians"][2] >= 20 * max(clean) or not cuda,
+              f"remediate: lane 2 {run['medians']}")
+        check(run["lag"] == [1], f"remediate: quarantine lag {run['lag']}")
+        check(all(s == ("held" if name.endswith(".d2") else "closed")
+                  for name, s in run["held"].items()),
+              f"remediate: breakers under the quarantine {run['held']}")
+        check(len(run["quarantined"]) >= 16
+              and set(run["quarantined"]) <= {0, 1, 3},
+              f"remediate: placements {run['quarantined']}")
+        check(sorted(run["returned"]) == [0, 1, 2, 3]
+              and all(s == "closed" for s in run["released"].values()),
+              f"remediate: after the release {run['returned']}")
+        check([(e["event"], e["policy"], e["key"], e["reason"])
+               for e in run["journal"]] == [
+            ("fire", "straggler-quarantine", "card.d2", ""),
+            ("release", "straggler-quarantine", "card.d2", "re-probe")]
+            and all(e["applied"] for e in run["journal"]),
+            f"remediate: quarantine journal {run['journal']}")
+        check(("fleet-outlier", "card.d2:encode_wall_s") in run["bundles"],
+              f"remediate: bundles {run['bundles']}")
+        tags, wfrs = run["tags"]
+        check(torch.equal(tags, podr2.tag_fragments(key, fix["wave_ids"],
+                                                    wfrs)),
+              "remediate: the quarantine drill's tags differ")
+        progs += run["progs"]
+        del run["tags"]
+    check(lanes[0]["witness"] == lanes[1]["witness"]
+          and lanes[0]["placements"] == lanes[1]["placements"]
+          and lanes[0]["fired"] == lanes[1]["fired"],
+          "remediate: the quarantine drill's replay differs")
+    # a lane's program keys end in ("device", i): the lanes share the
+    # card, so each shape is held once
+    progs = sorted({k[:-1] if isinstance(k[-1], tuple)
+                    and k[-1][:1] == ("device",) else k for k in progs},
+                   key=repr)
+    held = serve_kernel_checks(
+        progs, types.SimpleNamespace(config=cfg, podr2_key=key), dev,
+        [data] + wave, [enc] + wave_enc, [fix["ids"], fix["wave_ids"]],
+        None, 1, errs, phase="remediate")
+
+    def ms(xs):
+        return "/".join(f"{x * 1e3:.3f}" for x in xs)
+
+    def us(xs):
+        return (f"median {statistics.median(xs) * 1e6:.1f} us, max "
+                f"{max(xs) * 1e6:.1f} us over {len(xs)}")
+
+    first = lanes[0]
+    print(f"phase remediate: RS(2,1) engines with resilience, a flight "
+          f"recorder, an incident reporter and a RemediationPlane (default "
+          f"policies), the chain's key; baselines on this card: "
+          f"{PERF_METRIC} = {base_e:.3f}, {REPAIR_METRIC} = {base_r:.3f} "
+          f"GiB/s; pin drill twice (a {PERF_DELAY_S * 1e3:.0f} ms "
+          f"engine.dispatch delay): encode regressed -> perf-pin held the "
+          f"codec breaker {pins[0]['lag'][0]} tick after the edge, a CUDA "
+          f"encode refused with no launch, a numpy one served on the CPU "
+          f"reference byte-equal, released by "
+          f"{pins[0]['journal'][1]['reason']}, gf_apply relaunched "
+          f"({pins[0]['relaunched']}), watchdog back to ok, then repair "
+          f"regressed -> pinned again {pins[0]['lag'][1]} tick after, its "
+          f"bundle with {dict(((t, k_), j) for t, k_, j in pins[0]['bundles'])[('perf-regression', REPAIR_METRIC)]} "
+          f"journal entries; witnesses equal; walls {ms([r['wall_s'] for r in pins])} "
+          f"ms; quarantine drill twice on DevicePool([card] x 4) (a "
+          f"{STRAGGLER_DELAY_S * 1e3:.0f} ms engine.dispatch.encode.d2 "
+          f"delay): encode batch wall window medians over "
+          f"{STRAGGLER_WAVES} batches, lanes 0/1/3 "
+          f"{ms([first['medians'][i] for i in (0, 1, 3)])} ms, lane 2 "
+          f"{first['medians'][2] * 1e3:.3f} ms (run 2: "
+          f"{ms([lanes[1]['medians'][i] for i in range(4)])}); outlier "
+          f"card.d2 alone, quarantined {first['lag'][0]} tick after the "
+          f"edge, {len(first['quarantined'])} encodes on lanes "
+          f"{sorted(set(first['quarantined']))} byte-equal, re-probe "
+          f"release, lane 2 serving again (wall "
+          f"{first['returned_walls'].get(2, 0.0) * 1e3:.3f} ms); witnesses "
+          f"and placement logs equal; walls {ms([r['wall_s'] for r in lanes])} "
+          f"ms; host cost: plane.tick {us([t for r in pins + lanes for t in r['tick_s']])}, "
+          f"fleet.seal_round (a scan of 4 lanes) "
+          f"{us([t for r in lanes for t in r['seal_s']])}; kernels at the "
+          f"engines' shapes byte-exact against their "
+          f"plain versions: {held}; phase wall {phase_s * 1e3:.3f} ms; peak "
+          f"{peak / MIB:.1f} MiB; launches {launches} {tag}")
     return launches
 
 
@@ -2580,7 +3096,11 @@ def main(argv: list[str]) -> int:
     launches_slo = slo_phase(dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 11. BASELINE geometry RS(4,8) ---------------------------------------
+    # 11. remediate: the remediation loop on the engine's and lanes' breakers
+    launches_remediate = remediate_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 12. BASELINE geometry RS(4,8) ---------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -2613,7 +3133,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 12. the xor path: RS(4,8) under strategy "xor", audited and repaired -
+    # 13. the xor path: RS(4,8) under strategy "xor", audited and repaired -
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -2690,7 +3210,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 13. known answer ------------------------------------------------------
+    # 14. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -2699,7 +3219,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 14. kernel times at the main paths' shapes --------------------------
+    # 15. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -2808,6 +3328,7 @@ def main(argv: list[str]) -> int:
             "launches_mesh": launches_mesh.get(name, 0),
             "launches_pool": launches_pool.get(name, 0),
             "launches_slo": launches_slo.get(name, 0),
+            "launches_remediate": launches_remediate.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,

@@ -155,6 +155,8 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch.obs.slo, cess_tpu_torch.obs.profile\n"
             "import cess_tpu_torch.obs.incident\n"
             "import cess_tpu_torch.serve.adaptive\n"
+            "import cess_tpu_torch.serve.remediate, cess_tpu_torch.obs.fleet\n"
+            "import cess_tpu_torch.obs.custody, cess_tpu_torch.obs.chainwatch\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"
