@@ -9,10 +9,17 @@ tree reuses the library, a changed one builds anew. The kernel modules
 the functions they call. A failed compile, link or load raises
 :class:`KernelBuildError`, which the serving engine never absorbs into a
 CPU fallback.
+
+The host libraries (``native/*.cpp``: the CPU erasure codec and the
+BLS12-381 backend) are built the same way by ``build_host``: one ``g++``
+a source, into ``build/native/``, named by a hash of the source and the
+flags, at first use, under a file lock so that concurrent first uses
+build once, written to a per-process file and moved into place.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -21,6 +28,10 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NATIVE_DIR = Path(__file__).resolve().parent / "native"
+HOST_BUILD_DIR = BUILD_DIR.parent / "native"
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+ARCH_FLAGS = ("-march=native",)     # dropped on a retry, as the Makefile does
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -30,6 +41,10 @@ build_log = ""             # nvcc's output (ptxas register and spill lines)
 
 class KernelBuildError(RuntimeError):
     """The kernel library could not be compiled, linked or loaded."""
+
+
+class HostBuildError(RuntimeError):
+    """A host library of ``native/`` could not be compiled."""
 
 
 def _nvcc() -> str:
@@ -111,3 +126,40 @@ def check(rc: int, name: str) -> None:
     """Raise if a C launcher reported a CUDA error."""
     if rc:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def host_library_path(source: Path) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + ARCH_FLAGS).encode())
+    h.update(source.name.encode())
+    h.update(source.read_bytes())
+    return HOST_BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """The host library of ``native/<name>.cpp``, compiled by ``g++``
+    unless it exists: with ``-march=native`` first and without it if
+    that fails. Raises :class:`HostBuildError`."""
+    source = NATIVE_DIR / f"{name}.cpp"
+    out = host_library_path(source)
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise HostBuildError("g++ not found")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)    # released when the file closes
+        if out.exists():
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        logs = []
+        for flags in (CXX_FLAGS + ARCH_FLAGS, CXX_FLAGS):
+            proc = subprocess.run([cxx, *flags, str(source), "-o", str(tmp)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+                return out
+            logs.append(proc.stdout)
+        tmp.unlink(missing_ok=True)
+    raise HostBuildError(f"g++ failed on {source.name}:\n" + "".join(logs))

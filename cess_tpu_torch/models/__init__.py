@@ -1,1 +1,2 @@
 """The storage pipeline (segments -> fragments -> tags)."""
+from .pipeline import PipelineConfig, StoragePipeline  # noqa: F401

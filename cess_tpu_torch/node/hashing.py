@@ -1,8 +1,8 @@
 """Host hashes of the off-chain agents: fragment identities and fillers.
 
-The port's own copies of ``cess_tpu/crypto/hashing.py``'s
-``fragment_hash`` and ``cess_tpu/node/offchain.py``'s ``filler_bytes``
-(the port imports nothing of that package). Both are protocol facts:
+``fragment_hash`` is ``crypto/hashing.py``'s, re-exported; ``filler_bytes``
+is the port's own copy of ``cess_tpu/node/offchain.py``'s (the port
+imports nothing of that package). Both are protocol facts:
 the bytes must equal the reference's, since a fragment's hash is its
 on-chain identity and the low 8 bytes of it are its PoDR2 id.
 """
@@ -10,10 +10,7 @@ from __future__ import annotations
 
 import hashlib
 
-
-def fragment_hash(data) -> bytes:
-    """The on-chain identity of a fragment: its raw 32-byte sha256."""
-    return hashlib.sha256(data).digest()
+from ..crypto.hashing import fragment_hash  # noqa: F401
 
 
 def filler_bytes(miner: str, index: int, size: int) -> bytes:

@@ -2,8 +2,10 @@
 and repair, TEE filler tags and proof checks, on the port's device.
 
 The counterpart of what ``cess_tpu/node/offchain.py`` computes on the
-device. The chain half (extrinsics, events, the wire codec, signatures,
-the deal and restoral bookkeeping) is not ported: these functions take
+device, and of its proof wire format (``Proof``, ``proof_wire_bytes``,
+``build_proof``: the bytes a miner submits to ``chain.audit``). The
+agents' classes (``OssGateway``, ``MinerAgent``, ``TeeAgent``,
+``ValidatorOcw``) are not ported: they need a node. These functions take
 and return host arrays and bytes, so an agent on either side of that
 boundary can call them.
 
@@ -39,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .. import codec
 from .._device import resolve_device
 from ..models.pipeline import PipelineConfig, StoragePipeline
 from ..obs import trace
@@ -424,6 +427,42 @@ def prove_owed(seed: bytes, owed, store, tags, *, limbs: int | None = None,
             mu, sigma = ops.prove_aggregate(sel, tsel, order, nu, r)
     return (np.ascontiguousarray(np.asarray(mu), dtype=np.uint32),
             np.ascontiguousarray(np.asarray(sigma), dtype=np.uint32))
+
+
+@codec.register
+@dataclasses.dataclass(frozen=True)
+class Proof:
+    """The aggregated PoDR2 proof on the wire: one (mu, sigma) folded over
+    every owed fragment. Both fields are fixed-width uint32 arrays, so
+    the codec's bytes are constant in the number of fragments; the chain
+    caps them at SIGMA_MAX. Registered under the reference's class name,
+    so the bytes equal the reference's."""
+    mu: np.ndarray              # [sectors] uint32
+    sigma: np.ndarray           # [limbs] uint32 F_p^limbs element
+
+
+def proof_wire_bytes(limbs: int | None = None,
+                     sectors: int = podr2.SECTORS) -> int:
+    """The framed wire size of an aggregated proof (``podr2.PROOF_BYTES``
+    of payload plus the codec's constant framing), from an actual
+    encode."""
+    if limbs is None:
+        limbs = podr2.LIMBS
+    return len(codec.encode(Proof(
+        mu=np.zeros((sectors,), np.uint32),
+        sigma=np.zeros((limbs,), np.uint32))))
+
+
+def build_proof(seed: bytes, owed, store, tags, limbs: int | None = None,
+                engine=None, tenant: str | None = None, *,
+                device=None) -> bytes:
+    """A miner's aggregated proof over the owed set as wire bytes:
+    ``prove_owed`` (on the card, or the engine's prove queue) followed by
+    the codec. Fragments the miner no longer holds contribute nothing,
+    and the proof then fails the TEE's check."""
+    mu, sigma = prove_owed(seed, owed, store, tags, limbs=limbs,
+                           engine=engine, tenant=tenant, device=device)
+    return codec.encode(Proof(mu=mu, sigma=sigma))
 
 
 def verify_owed(key: podr2.Podr2Key, blocks: int, seed: bytes, owed, mu,

@@ -47,6 +47,14 @@ def gf_inv(a: int) -> int:
     return int(EXP[ORDER - LOG[a]])
 
 
+def gf_pow(a: int, n: int) -> int:
+    if n == 0:
+        return 1
+    if a == 0:
+        return 0
+    return int(EXP[(LOG[a] * n) % ORDER])
+
+
 @functools.cache
 def mul_table() -> np.ndarray:
     """Full 256x256 multiplication table; MUL[a, b] = a*b in GF(2^8)."""

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 P = (1 << 31) - 1  # 2147483647, Mersenne prime M31
+MASK16 = 0xFFFF
 MASK32 = 0xFFFFFFFF
 BYTES_PER_ELEM = 2
 
@@ -41,9 +42,32 @@ def submod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.int64) - b.to(torch.int64)) % P
 
 
+def negmod(a: torch.Tensor) -> torch.Tensor:
+    """-a mod p for a in [0, p)."""
+    return (-a.to(torch.int64)) % P
+
+
 def mulmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a * b) mod p for a, b in [0, p): the product is below 2^62."""
     return (a.to(torch.int64) * b.to(torch.int64)) % P
+
+
+def mulmod_u16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod p for a in [0, 2^16), b in [0, p). The TPU package
+    splits b into 16-bit limbs here to stay inside 32-bit lanes; in int64
+    the product is below 2^47 and this is ``mulmod``."""
+    return mulmod(a, b)
+
+
+def dot_u16_deferred(m: torch.Tensor, b: torch.Tensor,
+                     dim: int) -> torch.Tensor:
+    """sum_j m_j * b_j mod p for m in [0, 2^16), b in [0, p), over a dim
+    of at most 256 terms: the TPU package's deferred-reduction dot, whose
+    bound this keeps. In int64 it is ``dotmod``."""
+    n = m.shape[dim]
+    if n > 256:
+        raise ValueError(f"deferred dot bound: dim size {n} > 256")
+    return dotmod(m, b, dim=dim)
 
 
 def rotk(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -88,6 +112,11 @@ def psum_mod(parts, group=None) -> torch.Tensor:
 
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
     return total % P
+
+
+def powmod(a: int, e: int) -> int:
+    """Host-side scalar power mod p."""
+    return pow(int(a), int(e), P)
 
 
 def invmod(a: int) -> int:

@@ -159,6 +159,24 @@ def prf_elems(prf_key: torch.Tensor, fragment_id, n: int,
                       limbs)[0]
 
 
+def tag_from_elems(alpha: torch.Tensor, f: torch.Tensor,
+                   m: torch.Tensor) -> torch.Tensor:
+    """Tags [B, limbs] int32 from the PRF slice f [B, limbs] and packed
+    data m [B, s]: ``f + m @ alpha`` in each limb (plain tensor code)."""
+    mac = pf.dotmod(m[..., None], alpha[None, :, :], dim=-2)
+    return pf.addmod(f, mac).to(torch.int32)
+
+
+def tag_fragment(key: Podr2Key, fragment_id, fragment) -> torch.Tensor:
+    """Tags of one fragment: uint8 [fragment_bytes] -> int32 [blocks,
+    limbs], on the fragment's device (the PRF through ``prf_blocks``)."""
+    fragment = torch.as_tensor(fragment)
+    key = key.to(fragment.device)
+    m = fragment_to_elems(fragment, key.alpha.shape[0])          # [B, s]
+    return tag_from_elems(key.alpha, prf_elems(key.prf_key, fragment_id,
+                                               m.shape[0], key.limbs), m)
+
+
 def tag_fragments(key: Podr2Key, ids, fragments: torch.Tensor,
                   first_block: int | None = None) -> torch.Tensor:
     """Tags [F, blocks, limbs] int32 of fragments [F, bytes] uint8 with
@@ -199,6 +217,14 @@ def aggregate_coeffs(seed: bytes, ids, device=None) -> torch.Tensor:
     """Per-fragment aggregation coefficients r [F] int32, computed on
     ``device``; only the round seed's sha256 runs on the host."""
     return prf.aggregate_coeffs(seed, _id_pairs(ids, resolve_device(device)))
+
+
+def prove(fragment: torch.Tensor, tags: torch.Tensor, idx, nu,
+          sectors: int = SECTORS) -> tuple[torch.Tensor, torch.Tensor]:
+    """A miner's proof for one fragment [bytes] with tags [blocks, limbs]
+    -> (mu [sectors], sigma [limbs]) int32."""
+    mu, sigma = prove_batch(fragment[None], tags[None], idx, nu, sectors)
+    return mu[0], sigma[0]
 
 
 def prove_batch(fragments: torch.Tensor, tags: torch.Tensor,
@@ -258,6 +284,19 @@ def verify_from_f(alpha, f, idx, nu, mu, sigma) -> torch.Tensor:
     lhs = pf.dotmod(nu[:, None], f[idx.to(torch.int64)], dim=0)
     rhs = pf.dotmod(alpha, mu[:, None], dim=0)
     return torch.all(pf.addmod(lhs, rhs) == sigma.to(torch.int64))
+
+
+def verify(key: Podr2Key, fragment_id, num_blocks: int, idx, nu, mu,
+           sigma) -> torch.Tensor:
+    """The TEE's check of one fragment's proof: a bool scalar, true only
+    when every limb equation holds; the PRF is evaluated at the
+    challenged blocks only, on mu's device."""
+    dev = mu.device
+    key = key.to(dev)
+    f_i = prf_elems_at(key.prf_key, fragment_id, idx, key.limbs)
+    lhs = pf.dotmod(nu.to(dev)[:, None], f_i, dim=0)
+    rhs = pf.dotmod(key.alpha, mu[:, None], dim=0)
+    return torch.all(pf.addmod(lhs, rhs) == sigma.to(dev, torch.int64))
 
 
 def verify_batch(key: Podr2Key, fragment_ids_, num_blocks: int, idx, nu, mu,

@@ -292,14 +292,23 @@ class TorchCodec:
 
 @functools.lru_cache(maxsize=None)
 def make_codec(k: int, m: int, backend: str | None = None,
-               strategy: str | None = None) -> TorchCodec:
+               strategy: str | None = None):
     """The ``ErasureCodec`` gate: "cuda", or None and "auto" (the
     default), run on the card and raise when none is present; "cpu" is
     the explicit host choice; "regen" is the regenerating repair plane
-    (``regen.RegenCodec``) on the card. ``strategy`` as for
-    ``TorchCodec``."""
-    if backend not in (None, "auto", "cpu", "cuda", "regen"):
+    (``regen.RegenCodec``) on the card; "native" is the C++ host codec
+    (``rs_native.NativeCodec``, numpy in and out), NotImplementedError
+    when it cannot be built. ``strategy`` as for ``TorchCodec``."""
+    if backend not in (None, "auto", "cpu", "cuda", "regen", "native"):
         raise ValueError(f"unknown ErasureCodec backend {backend!r}")
+    if backend == "native":
+        try:
+            from .rs_native import NativeCodec
+        except ImportError as e:
+            raise NotImplementedError(
+                "native (C++) ErasureCodec backend could not be built; "
+                "use backend='cpu' or 'cuda'") from e
+        return NativeCodec(k, m)
     if backend == "regen":
         from .regen import RegenCodec   # regen builds on this module
 

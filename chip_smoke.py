@@ -147,9 +147,37 @@ limit):
    placement logs in each pair; counters zeroed just before and read
    just after, then each kernel held against its plain version at every
    shape in the engines' program caches;
-12. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+12. chain: one storage-audit round from the card's encode to the
+   port's chain state at the main path's width (RS(2,1), 32 segments of
+   16 MiB, the chain's key ``Podr2Key.generate(7)``), the pallets of
+   ``cess_tpu_torch/chain`` wired by ``tests/torch_chain_wiring.py`` as
+   the reference's runtime wires them: genesis keys through ``System``,
+   three miners through ``sminer.regnstk``, a TEE registered through
+   ``tee_worker.register`` (an RSA attestation from ``issue_cert`` and
+   ``issue_report``, the root pinned, the enclave whitelisted, a BLS key
+   with its proof of possession), 4 fillers of 8 MiB a miner certified
+   by ``certify_fillers`` on the card and registered through
+   ``file_bank.upload_filler`` under the TEE's ed25519 certificate; then
+   ``upload_batch`` on the card, ``buy_space``, ``upload_declaration``,
+   every ``transfer_report`` and ``calculate_end``, three validators'
+   signed proposals (the challenge starts at 2/3, the third is refused),
+   each miner's ``audit.submit_proof`` of ``build_proof`` wire bytes
+   computed on the card (at most SIGMA_MAX), the TEE's decode and
+   ``verify_owed`` on the card and its BLS seal through
+   ``audit.submit_verify_result``: honest miners true and rewarded, a
+   miner holding a fragment XORed with 0xA5 false with its
+   ``fail_count`` raised, a forged seal refused
+   (``audit.BadVerdictSignature``), the sealed log re-verified by
+   ``reverify_verdicts_batch``. The native BLS library must have loaded.
+   Counters zeroed just before and read just after (``gf_apply``,
+   ``podr2_tag`` and ``prf_blocks`` must launch), then each kernel held
+   against its plain version at the phase's shapes; the line gives the
+   upload's stages, the round's host wall split into snapshot and
+   proposals, proofs, checks, seals and pallet calls, BLS sign and
+   verify times and the final ``state_root``;
+13. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-13. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+14. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -157,10 +185,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-14. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+15. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-15. kernel times beside the plain versions' times and each kernel's
+16. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -171,7 +199,15 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-16. with ``--parent DIR`` (another checkout of the repository, e.g. the
+17. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
+   ``build/native/``) on the timing phase's RS(4,8) input [32, 4, 4 MiB]:
+   ``NativeCodec(4, 8)`` parity on 1 thread and on ``os.cpu_count()``
+   threads and the decode of the data from four parity fragments,
+   byte-equal to ``gf_apply`` on the card and to ``TorchCodec(4, 8,
+   "cpu")`` on a slice; the native GiB/s, ``gf_apply``'s device GiB/s on
+   the same bytes and their ratio, ``bench.py``'s CPU-speedup measure (a
+   measurement, not a gate);
+18. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -187,8 +223,9 @@ wrapper in a CUDA graph and replays it.
 The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
 ``launches_stream``, ``launches_chaos``, ``launches_agents``,
-``launches_mesh``, ``launches_pool``, ``launches_slo`` and
-``launches_remediate`` from phases 4 to 11); the last
+``launches_mesh``, ``launches_pool``, ``launches_slo``,
+``launches_remediate`` and ``launches_chain`` from phases 4 to 12); the
+last
 is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
@@ -2755,6 +2792,237 @@ def remediate_phase(dev, zero_counts, counts, errs: dict, tag: str,
     return launches
 
 
+def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
+                nseg: int = 32) -> dict:
+    """One storage-audit round from the card's encode to the chain, at
+    the main path's width: RS(2,1), ``nseg`` segments of 16 MiB, the
+    chain's key ``Podr2Key.generate(7)``. ``tests/torch_chain_wiring.py``
+    wires the port's pallets as the reference's runtime wires them and
+    drives the extrinsic sequence the JAX agents submit (its
+    ``audit_round``): genesis keys through ``System``, three miners
+    through ``sminer.regnstk``, a TEE registered with an RSA attestation
+    and a BLS key with its proof of possession, 4 certified fillers of
+    8 MiB a miner through ``file_bank.upload_filler``; ``upload_batch``
+    on the card, the deal, the validators' signed proposals, every
+    miner's ``build_proof`` wire bytes computed on the card, the TEE's
+    decode and ``verify_owed`` on the card and its BLS seal. Miner 2
+    holds one fragment XORed with 0xA5. The native BLS library must have
+    loaded (no fallback to pure Python). Counters are zeroed just before
+    the round and read just after; then each kernel is held against its
+    plain version at the phase's shapes. A smaller ``cfg`` and ``nseg``
+    rehearse the phase on the CPU. Returns the launches of the phase."""
+    import os
+    import statistics as st
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch import constants
+    from cess_tpu_torch.crypto import bls12381
+    from cess_tpu_torch.models.pipeline import PipelineConfig
+    from cess_tpu_torch.node import offchain as oc
+    from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, rs_kernel
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_chain_wiring import TEE, Chain, audit_round
+
+    check(bls12381._native is not None,
+          "chain: the native BLS library did not load (the round would "
+          "run on the pure-Python pairing)")
+    bls_lib = os.path.relpath(bls12381._native._lib._name,
+                              os.path.dirname(os.path.abspath(__file__)))
+    cfg = cfg or PipelineConfig()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    n, blocks = cfg.fragment_size, cfg.blocks_per_fragment
+    key = podr2.Podr2Key.generate(7, device=dev)
+    pipe = oc.AgentPipeline(cfg, podr2_key=key, device=dev)
+    data = rand_bytes((nseg * cfg.segment_size,), 91, dev).cpu().numpy()
+    chain = Chain("cess_tpu_torch")
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    r = audit_round(pipe, data, chains=[chain], device=dev, tamper_row=1)
+    sync()
+    round_s = time.perf_counter() - t0
+    launches = counts()
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")),
+          f"chain: a kernel was not launched by the round: {launches}")
+    up, deal = r["upload"], r["deal"]
+    want = {w: (True, w != r["tampered"]) for w in deal.assigned}
+    check(r["verdicts"] == want,
+          f"chain: verdicts {r['verdicts']} != {want}")
+    wire = oc.proof_wire_bytes()
+    check(all(len(b) == wire <= constants.SIGMA_MAX
+              for pair in r["proofs"].values() for b in pair),
+          f"chain: a proof's wire bytes are not {wire} <= SIGMA_MAX")
+    for w in deal.assigned:
+        orders = chain.state.get("sminer", "reward_orders", w)
+        if w == r["tampered"]:
+            check(orders is None
+                  and chain.state.get("audit", "fail_count", w) == 1,
+                  f"chain: the tampered miner {w} was not failed once")
+        else:
+            check(bool(orders), f"chain: honest miner {w} was not rewarded")
+    check(r["log_ok"] and len(r["verdict_log"]) == len(deal.assigned),
+          "chain: the sealed verdict log does not re-verify")
+    check(chain.state.recompute_root() == r["state_root"],
+          "chain: the incremental state root differs from a full rescan")
+
+    # BLS on the native library: a seal and its check
+    sk, pk = r["bls"]
+    msg = b"chip-smoke verdict"
+    sig = bls12381.sign(sk, msg)
+    def median_ms(fn, runs=5):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return st.median(times)
+
+    sign_ms = median_ms(lambda: bls12381.sign(sk, msg))
+    verify_ms = median_ms(lambda: bls12381.verify(pk, msg, sig))
+    check(bls12381.verify(pk, msg, sig), "chain: a BLS seal did not verify")
+
+    # each kernel at the phase's shapes, against its plain version
+    def held(name, got, plain):
+        e = max_err(got, plain)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"chain: {name} at {tuple(got.shape)} differs from "
+              f"its plain version")
+
+    shapes = []
+    seg_t = torch.from_numpy(data).to(dev).view(nseg, cfg.k, n)
+    tab = rs_kernel.tables(gf.cauchy_parity_matrix(cfg.k, cfg.m), dev)
+    held("gf_apply", rs_kernel.gf_apply(tab, seg_t),
+         rs_kernel.gf_apply_plain(tab, seg_t))
+    shapes.append(f"gf_apply encode {tuple(seg_t.shape)}")
+    del seg_t
+    frags_t = torch.from_numpy(np.array(up.fragments)).to(dev).view(-1, n)
+    ids_t = torch.from_numpy(up.ids.reshape(-1, 2).astype(np.int64)).to(dev)
+    w0 = deal.assigned[0]
+    fill = r["filler_store"][w0]
+    fill_t = torch.from_numpy(np.stack([np.frombuffer(b, np.uint8)
+                                        for b in fill.values()])).to(dev)
+    fill_ids = torch.from_numpy(np.stack([
+        podr2.fragment_id_from_hash(h) for h in fill]).astype(
+            np.int64)).to(dev)
+    every = torch.arange(blocks, device=dev)
+    for ids, fr in ((ids_t, frags_t), (fill_ids, fill_t)):
+        prf_lm = podr2_kernel.prf_blocks(key.prf_key, ids, None, blocks,
+                                         key.limbs, limb_major=True)
+        held("prf_blocks", prf_lm, prf.prf_plain(key.prf_key, ids, every,
+                                                 key.limbs).transpose(1, 2))
+        fb = fr.view(-1, blocks, podr2.BLOCK_BYTES)
+        held("podr2_tag", podr2_kernel.podr2_tag(key.weights, prf_lm, fb),
+             podr2_kernel.podr2_tag_plain(key.weights, prf_lm, fb))
+        shapes.append(f"prf_blocks (limb-major) and podr2_tag "
+                      f"{ids.shape[0]} x {blocks}")
+        del prf_lm, fb
+    idx = podr2.gen_challenge(r["seed"], blocks, device=dev)[0]
+    snap = next(m.snapshot for m in r["missions"] if m.miner == w0)
+    for hashes in (snap.service_frags, snap.fillers):
+        ids = torch.from_numpy(np.stack([
+            podr2.fragment_id_from_hash(h) for h in hashes]).astype(
+                np.int64)).to(dev)
+        held("prf_blocks", podr2_kernel.prf_blocks(
+            key.prf_key, ids, idx, idx.numel(), key.limbs),
+            prf.prf_plain(key.prf_key, ids, idx, key.limbs))
+        shapes.append(f"prf_blocks {ids.shape[0]} x {idx.numel()}")
+    del frags_t, fill_t
+    if cuda:
+        torch.cuda.empty_cache()
+    t = r["seconds"]
+    split = ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in up.seconds.items())
+    host = ("snapshot_and_proposals", "proofs", "checks", "seals",
+            "pallet_calls")
+    nfrag = up.fragments.shape[0] * up.fragments.shape[1]
+    print(f"phase chain: RS(2,1) upload of {nseg} x "
+          f"{cfg.segment_size // MIB} MiB segments ({nfrag} fragments of "
+          f"{n // MIB} MiB) {t['upload'] * 1e3:.3f} ms ({split}); "
+          f"{len(deal.assigned)} miners x {nseg} fragments + 4 fillers each "
+          f"(generation, certification and registration "
+          f"{t['fillers'] * 1e3:.3f} ms); the round's host wall "
+          f"{sum(t[k] for k in host) * 1e3:.3f} ms: "
+          f"{', '.join(f'{k} {t[k] * 1e3:.3f} ms' for k in host)}; phase "
+          f"{round_s * 1e3:.3f} ms; {len(r['proofs']) * 2} proofs of {wire} "
+          f"wire bytes; verdicts {sorted(r['verdicts'].items())} (tampered "
+          f"{r['tampered']}), honest miners rewarded, the forged seal refused "
+          f"(audit.BadVerdictSignature), the verdict log re-verified in one "
+          f"pairing product; native BLS ({bls_lib}) sign {sign_ms:.3f} ms, "
+          f"verify {verify_ms:.3f} ms; state_root {r['state_root'].hex()}; kernels "
+          f"byte-exact against their plain versions at the phase's shapes: "
+          f"{', '.join(shapes)}; launches {launches} {tag}")
+    return launches
+
+
+def native_phase(dev, data, tab, tag: str) -> str:
+    """The C++ host codec (``ops/rs_native.py``) beside the card: RS(4,8)
+    parity of ``data`` [B, 4, n] (on the card) on 1 thread and on
+    ``os.cpu_count()`` threads, and the decode of the data from four
+    parity fragments, byte-equal to ``gf_apply``'s output on the card and
+    to ``TorchCodec(4, 8, "cpu")`` on a slice; GiB/s of input on each
+    side and their ratio, ``bench.py``'s CPU-speedup measure. A
+    measurement, not a gate. Returns the line."""
+    import os
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch.ops import rs_kernel
+    from cess_tpu_torch.ops.rs import TorchCodec, make_codec
+    from cess_tpu_torch.ops.rs_native import NativeCodec, simd_level
+
+    check(isinstance(make_codec(4, 8, "native"), NativeCodec),
+          "native: make_codec(4, 8, 'native') is not NativeCodec")
+    host = data.cpu().numpy()
+    nbytes = host.nbytes
+    threads = os.cpu_count() or 1
+    out = torch.empty((data.shape[0], 8, data.shape[2]), dtype=torch.uint8,
+                      device=dev)
+    card = rs_kernel.gf_apply(tab, data, out=out).cpu().numpy()
+    rates, parity = {}, None
+    for nt in (1, threads):
+        codec = NativeCodec(4, 8, threads=nt)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = codec.encode_parity(host)
+            times.append(time.perf_counter() - t0)
+        check(np.array_equal(got, card),
+              f"native: {nt}-thread parity differs from gf_apply's")
+        rates[nt] = nbytes / min(times) / 2 ** 30
+        parity = got
+    decoded = NativeCodec(4, 8, threads=threads).decode_data(
+        parity[:, :4], (4, 5, 6, 7))
+    check(np.array_equal(decoded, host),
+          "native: the decode from four parity fragments differs")
+    piece = host[:2, :, :256 * 1024]
+    want = TorchCodec(4, 8, "cpu").encode(torch.from_numpy(piece)).numpy()
+    check(np.array_equal(want[:, 4:], card[:2, :, :256 * 1024]),
+          "native: TorchCodec on the CPU differs from gf_apply on a slice")
+    dev_ms = graph_ms(lambda: rs_kernel.gf_apply(tab, data, out=out))
+    dev_gibps = nbytes / (dev_ms / 1e3) / 2 ** 30
+    del out
+    line = (f"phase native: RS(4,8) parity of {tuple(host.shape)} "
+            f"({nbytes // MIB} MiB) by NativeCodec (SIMD level "
+            f"{simd_level()}: 2 is the AVX2 build) {rates[1]:.3f} GiB/s on 1 "
+            f"thread, {rates[threads]:.3f} GiB/s on {threads} threads (best "
+            f"of 3), byte-equal to gf_apply on the card and to "
+            f"TorchCodec(4, 8, 'cpu') on a slice, decode from parity rows "
+            f"(4, 5, 6, 7) byte-exact; gf_apply {dev_gibps:.3f} GiB/s (device "
+            f"{dev_ms:.4f} ms); cpu_speedup_encode_x (bench.py:5, device over "
+            f"1-thread native) {dev_gibps / rates[1]:.1f}x, over "
+            f"{threads} threads {dev_gibps / rates[threads]:.1f}x {tag}")
+    print(line)
+    return line
+
+
 def parent_turns(parent: str, cases, tag: str) -> None:
     """Time each case's wrapper with the kernels built from ``parent``'s
     sources and with this tree's, in turns parent, change, change,
@@ -3100,7 +3368,11 @@ def main(argv: list[str]) -> int:
     launches_remediate = remediate_phase(dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 12. BASELINE geometry RS(4,8) ---------------------------------------
+    # 12. chain: one audit round from the card's encode to the chain -----
+    launches_chain = chain_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 13. BASELINE geometry RS(4,8) ---------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -3133,7 +3405,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 13. the xor path: RS(4,8) under strategy "xor", audited and repaired -
+    # 14. the xor path: RS(4,8) under strategy "xor", audited and repaired -
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -3210,7 +3482,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 14. known answer ------------------------------------------------------
+    # 15. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -3219,7 +3491,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 15. kernel times at the main paths' shapes --------------------------
+    # 16. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -3329,6 +3601,7 @@ def main(argv: list[str]) -> int:
             "launches_pool": launches_pool.get(name, 0),
             "launches_slo": launches_slo.get(name, 0),
             "launches_remediate": launches_remediate.get(name, 0),
+            "launches_chain": launches_chain.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -3363,6 +3636,8 @@ def main(argv: list[str]) -> int:
           f"{2 * flat_in.numel() / copy_ms / 1e9:.3f} TB/s read + written; "
           f"fill {flat_out.numel() / MIB:.0f} MiB {fill_ms:.4f} ms = "
           f"{flat_out.numel() / fill_ms / 1e9:.3f} TB/s (device times) {tag}")
+    # 17. native: the C++ host codec beside the card on the same bytes --
+    native_phase(dev, datax, tab48, tag)
     if args.parent:
         parent_turns(args.parent, [
             ("gf_apply RS(2,1) encode", rs_kernel, "_fn", "gf_apply",

@@ -207,7 +207,7 @@ def test_miner_attrition_lineage_feeds_both_packages(monkeypatch):
     monkeypatch.setattr(scenarios, "_custody_scrape", tee)
     trec = tflight.FlightRecorder(b"port-custody")
     with tflight.armed(trec):
-        report = scenarios.run_scenario(scenario, seed, n_nodes=12,
+        report = scenarios.run_scenario(scenario, seed, n_nodes=16,
                                         strict=True, flight=rec)
     plane = report.custody
     assert len(sealed) == scenario.rounds

@@ -211,3 +211,28 @@ def test_make_codec_gate():
     with pytest.raises(ValueError, match="unknown ErasureCodec"):
         make_codec(2, 1, "tpu")
 
+
+
+def test_gf_pow_matches():
+    for a in (0, 1, 2, 3, 0x53, 255):
+        for n in (0, 1, 2, 7, 254, 255, 256, 1000):
+            assert gf.gf_pow(a, n) == jgf.gf_pow(a, n)
+
+
+def test_pfield_single_fragment_helpers_match():
+    """negmod, powmod and the int64 bodies of the TPU's 16-bit lowering
+    (mulmod_u16, dot_u16_deferred) give the reference's values."""
+    a = jpf.to_field(field_lanes(3))
+    np.testing.assert_array_equal(pf.negmod(t64(a)).numpy(), jpf.negmod(a))
+    m = field_lanes(4) & 0xFFFF
+    np.testing.assert_array_equal(pf.mulmod_u16(t64(m), t64(a)).numpy(),
+                                  jpf.mulmod_u16(m, a))
+    mm, bb = m[:256 * 7].reshape(7, 256), a[:256 * 7].reshape(7, 256)
+    np.testing.assert_array_equal(
+        pf.dot_u16_deferred(t64(mm), t64(bb), dim=1).numpy(),
+        jpf.dot_u16_deferred(mm, bb, axis=1))
+    with pytest.raises(ValueError, match="256"):
+        pf.dot_u16_deferred(t64(m[:257]), t64(a[:257]), dim=0)
+    assert pf.MASK16 == jpf.MASK16
+    for v, e in ((2, 31), (123456789, jpf.P - 2), (0, 0), (jpf.P - 1, 5)):
+        assert pf.powmod(v, e) == jpf.powmod(v, e)

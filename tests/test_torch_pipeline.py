@@ -157,6 +157,24 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch.serve.adaptive\n"
             "import cess_tpu_torch.serve.remediate, cess_tpu_torch.obs.fleet\n"
             "import cess_tpu_torch.obs.custody, cess_tpu_torch.obs.chainwatch\n"
+            "from cess_tpu_torch.models import PipelineConfig, StoragePipeline\n"
+            "from cess_tpu_torch.ops.podr2 import (verify, prove, tag_fragment,\n"
+            "                                      tag_from_elems)\n"
+            "import cess_tpu_torch.codec, cess_tpu_torch.crypto\n"
+            "import cess_tpu_torch.crypto.hashing, cess_tpu_torch.crypto.ed25519\n"
+            "import cess_tpu_torch.crypto.rsa, cess_tpu_torch.crypto.bls12381\n"
+            "import cess_tpu_torch.crypto.bls_native\n"
+            "import cess_tpu_torch.ops.rs_native\n"
+            "import cess_tpu_torch.chain, cess_tpu_torch.chain.state\n"
+            "import cess_tpu_torch.chain.balances, cess_tpu_torch.chain.system\n"
+            "import cess_tpu_torch.chain.storage_handler\n"
+            "import cess_tpu_torch.chain.sminer, cess_tpu_torch.chain.scheduler\n"
+            "import cess_tpu_torch.chain.file_bank\n"
+            "import cess_tpu_torch.chain.attestation\n"
+            "import cess_tpu_torch.chain.tee_worker, cess_tpu_torch.chain.audit\n"
+            "from cess_tpu_torch.crypto import verify_bls\n"
+            "from cess_tpu_torch.node.offchain import (Proof, build_proof,\n"
+            "                                         proof_wire_bytes)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"

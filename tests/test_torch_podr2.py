@@ -296,3 +296,43 @@ def test_audit_backend_gate():
     with pytest.raises(ValueError, match="unknown AuditBackend"):
         make_audit_backend(key, "tpu")
 
+
+
+def test_single_fragment_api_matches_reference():
+    """tag_from_elems, tag_fragment, prove and verify on the inputs of
+    tests/test_podr2.py::test_tag_oracle_parity_numpy_bigint (key 5, one
+    16-block fragment from seed 4, id 0), then a challenge round."""
+    ORACLE_FRAG_BYTES = 4 * podr2.BLOCK_BYTES * 4     # test_podr2.FRAG_BYTES
+    jk = jpodr2.Podr2Key.generate(5)
+    key = podr2.Podr2Key.generate(5, device="cpu")
+    assert podr2.keys_equal(key, both_keys(5)[1])
+    frag = np.random.default_rng(4).integers(0, 256, (1, ORACLE_FRAG_BYTES),
+                                             dtype=np.uint8)[0]
+    want = np.asarray(jpodr2.tag_fragment(jk, 0, frag))
+    tags = podr2.tag_fragment(key, 0, torch.from_numpy(frag))
+    assert tags.dtype == torch.int32
+    np.testing.assert_array_equal(u32(tags), want)
+    m = podr2.fragment_to_elems(torch.from_numpy(frag))
+    f = podr2.prf_elems(key.prf_key, 0, m.shape[0])
+    np.testing.assert_array_equal(
+        u32(podr2.tag_from_elems(key.alpha, f, m)),
+        np.asarray(jpodr2.tag_from_elems(
+            jk.alpha, jpodr2.prf_elems(jk.prf_key, 0, m.shape[0]),
+            jpodr2.fragment_to_elems(jnp.asarray(frag)))))
+    blocks = m.shape[0]
+    idx, nu = podr2.gen_challenge(b"single", blocks, device="cpu")
+    jidx, jnu = jpodr2.gen_challenge(b"single", blocks)
+    mu, sigma = podr2.prove(torch.from_numpy(frag), tags, idx, nu)
+    jmu, jsigma = jpodr2.prove(jnp.asarray(frag), jnp.asarray(want), jidx,
+                               jnu)
+    np.testing.assert_array_equal(u32(mu), np.asarray(jmu))
+    np.testing.assert_array_equal(u32(sigma), np.asarray(jsigma))
+    assert bool(podr2.verify(key, 0, blocks, idx, nu, mu, sigma))
+    assert bool(jpodr2.verify(jk, 0, blocks, jidx, jnu, jnp.asarray(u32(mu)),
+                              np.asarray(u32(sigma))))
+    forged = mu.clone()
+    forged[0] = (forged[0] + 1) % pf.P
+    assert not bool(podr2.verify(key, 0, blocks, idx, nu, forged, sigma))
+    assert not bool(jpodr2.verify(jk, 0, blocks, jidx, jnu,
+                                  jnp.asarray(u32(forged)),
+                                  np.asarray(u32(sigma))))
