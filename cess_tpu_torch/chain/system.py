@@ -77,9 +77,18 @@ class System:
         self.state.deposit_event(PALLET, "SudoRetired")
 
     # -- runtime upgrade -------------------------------------------------------
-    # ``apply_runtime_upgrade`` runs the storage migrations of
-    # ``chain/migrations``, which the port does not have yet (they need
-    # the EVM and staking pallets): it comes with them.
+    def apply_runtime_upgrade(self) -> None:
+        """Root/council: activate the running code's pending storage
+        migrations in-band (the set_code + on_runtime_upgrade analog).
+        No-op if already current."""
+        from . import migrations
+
+        for name in migrations.run_pending(self.state):
+            self.state.deposit_event(PALLET, "MigrationApplied",
+                                     migration=name)
+        self.state.deposit_event(
+            PALLET, "RuntimeUpgraded",
+            spec_version=migrations.spec_version(self.state))
 
     # -- misc ------------------------------------------------------------------
     def remark(self, who: str, data: bytes) -> None:

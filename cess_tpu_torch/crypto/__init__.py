@@ -1,10 +1,11 @@
 """Host-side crypto for the chain layer (the port's own copy of the
-reference package's ``crypto/``: hashing, Ed25519, RSA and BLS12-381).
+reference package's ``crypto/``: hashing, Ed25519 and its VRF, RSA,
+BLS12-381, and the EVM precompiles' secp256k1 and RIPEMD-160).
 
 The reference vendors ring/webpki/verify-bls-signatures (Rust+C+asm,
 SURVEY.md §2.3) for SGX attestation verification, RSA message checks
 and BLS proof signatures. Here the host path is pure Python (RSA
-PKCS#1 v1.5 verify, SHA-2, Ed25519) with the batched field math on
+PKCS#1 v1.5 verify, SHA-2, Ed25519+VRF) with the batched field math on
 the card; BLS12-381 has a C++ fast path behind the same functions.
 """
 from .rsa import rsa_verify_pkcs1v15, RsaPublicKey  # noqa: F401

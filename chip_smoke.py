@@ -148,33 +148,44 @@ limit):
    just after, then each kernel held against its plain version at every
    shape in the engines' program caches;
 12. chain: one storage-audit round from the card's encode to the
-   port's chain state at the main path's width (RS(2,1), 32 segments of
-   16 MiB, the chain's key ``Podr2Key.generate(7)``), the pallets of
-   ``cess_tpu_torch/chain`` wired by ``tests/torch_chain_wiring.py`` as
-   the reference's runtime wires them: genesis keys through ``System``,
-   three miners through ``sminer.regnstk``, a TEE registered through
-   ``tee_worker.register`` (an RSA attestation from ``issue_cert`` and
-   ``issue_report``, the root pinned, the enclave whitelisted, a BLS key
-   with its proof of possession), 4 fillers of 8 MiB a miner certified
-   by ``certify_fillers`` on the card and registered through
+   port's ``Runtime`` (``cess_tpu_torch.chain.runtime``,
+   ``RuntimeConfig(era_blocks=50)``) at the main path's width (RS(2,1),
+   32 segments of 16 MiB, the chain's key ``Podr2Key.generate(7)``),
+   driven by ``tests/torch_chain_wiring.py``'s ``audit_round`` as a node
+   applies blocks: every call a ``SignedExtrinsic`` of its account's
+   ed25519 key through ``Runtime.apply_in_block`` (signature, nonce,
+   first-use key binding and fee), block by block. Genesis keys through
+   ``System``, the audit keys, the attestation root pinned and the
+   enclave whitelisted (root, the chain spec's role); three miners'
+   ``sminer.regnstk`` and the TEE's ``tee_worker.register`` (an RSA
+   attestation from ``issue_cert`` and ``issue_report``, a BLS key with
+   its proof of possession); 4 fillers of 8 MiB a miner certified by
+   ``certify_fillers`` on the card and registered through
    ``file_bank.upload_filler`` under the TEE's ed25519 certificate; then
-   ``upload_batch`` on the card, ``buy_space``, ``upload_declaration``,
-   every ``transfer_report`` and ``calculate_end``, three validators'
-   signed proposals (the challenge starts at 2/3, the third is refused),
-   each miner's ``audit.submit_proof`` of ``build_proof`` wire bytes
-   computed on the card (at most SIGMA_MAX), the TEE's decode and
-   ``verify_owed`` on the card and its BLS seal through
-   ``audit.submit_verify_result``: honest miners true and rewarded, a
+   ``upload_batch`` on the card, the user's ``buy_space``,
+   ``create_bucket`` and ``upload_declaration``, every
+   ``transfer_report`` and sudo's ``calculate_end``, three validators'
+   signed proposals (the challenge starts at 2/3, the third fails with
+   ``audit.ChallengeInProgress``), each miner's ``audit.submit_proof``
+   of ``build_proof`` wire bytes computed on the card (at most
+   SIGMA_MAX), the TEE's decode and ``verify_owed`` on the card and its
+   BLS seals through ``audit.submit_verify_result``, after a forged seal
+   that fails (``audit.BadVerdictSignature``): honest miners true, a
    miner holding a fragment XORed with 0xA5 false with its
-   ``fail_count`` raised, a forged seal refused
-   (``audit.BadVerdictSignature``), the sealed log re-verified by
-   ``reverify_verdicts_batch``. The native BLS library must have loaded.
-   Counters zeroed just before and read just after (``gf_apply``,
-   ``podr2_tag`` and ``prf_blocks`` must launch), then each kernel held
-   against its plain version at the phase's shapes; the line gives the
-   upload's stages, the round's host wall split into snapshot and
-   proposals, proofs, checks, seals and pallet calls, BLS sign and
-   verify times and the final ``state_root``;
+   ``fail_count`` raised, the sealed log re-verified by
+   ``reverify_verdicts_batch``. Then empty blocks to the era boundary
+   (block 50), where each honest miner's first reward tranche reaches
+   its beneficiary and the tampered miner's does not, and the
+   validators keep their audit keys. Each block's ``ExtrinsicFailed``
+   events must be exactly the two failures named. The native BLS
+   library must have loaded. Counters zeroed just before and read just
+   after (``gf_apply``, ``podr2_tag`` and ``prf_blocks`` must launch),
+   then each kernel held against its plain version at the phase's
+   shapes; the line gives the upload's stages, the round's host wall
+   split into snapshot and proposals, proofs, checks, seals, pallet
+   calls (``apply_in_block``) and block hooks (``init_block``), the era
+   block's ``init_block`` apart, the count of signed extrinsics, BLS
+   sign and verify times and the final ``state_root``;
 13. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
 14. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
@@ -2794,23 +2805,25 @@ def remediate_phase(dev, zero_counts, counts, errs: dict, tag: str,
 
 def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
                 nseg: int = 32) -> dict:
-    """One storage-audit round from the card's encode to the chain, at
-    the main path's width: RS(2,1), ``nseg`` segments of 16 MiB, the
-    chain's key ``Podr2Key.generate(7)``. ``tests/torch_chain_wiring.py``
-    wires the port's pallets as the reference's runtime wires them and
-    drives the extrinsic sequence the JAX agents submit (its
-    ``audit_round``): genesis keys through ``System``, three miners
-    through ``sminer.regnstk``, a TEE registered with an RSA attestation
-    and a BLS key with its proof of possession, 4 certified fillers of
-    8 MiB a miner through ``file_bank.upload_filler``; ``upload_batch``
-    on the card, the deal, the validators' signed proposals, every
-    miner's ``build_proof`` wire bytes computed on the card, the TEE's
-    decode and ``verify_owed`` on the card and its BLS seal. Miner 2
-    holds one fragment XORed with 0xA5. The native BLS library must have
-    loaded (no fallback to pure Python). Counters are zeroed just before
-    the round and read just after; then each kernel is held against its
-    plain version at the phase's shapes. A smaller ``cfg`` and ``nseg``
-    rehearse the phase on the CPU. Returns the launches of the phase."""
+    """One storage-audit round from the card's encode to the port's
+    ``Runtime``, at the main path's width: RS(2,1), ``nseg`` segments of
+    16 MiB, the chain's key ``Podr2Key.generate(7)``.
+    ``tests/torch_chain_wiring.py``'s ``audit_round`` applies the
+    extrinsic sequence the JAX agents submit as signed extrinsics through
+    ``Runtime.apply_in_block``, block by block (``RuntimeConfig(
+    era_blocks=50)``): three miners' ``sminer.regnstk``, a TEE registered
+    with an RSA attestation and a BLS key with its proof of possession, 4
+    certified fillers of 8 MiB a miner through ``file_bank.upload_filler``;
+    ``upload_batch`` on the card, the deal, the validators' signed
+    proposals, every miner's ``build_proof`` wire bytes computed on the
+    card, the TEE's decode and ``verify_owed`` on the card and its BLS
+    seals; then the blocks to the era boundary, where the honest miners'
+    first tranche is paid. Miner 2 holds one fragment XORed with 0xA5.
+    The native BLS library must have loaded (no fallback to pure Python).
+    Counters are zeroed just before the round and read just after; then
+    each kernel is held against its plain version at the phase's shapes.
+    A smaller ``cfg`` and ``nseg`` rehearse the phase on the CPU. Returns
+    the launches of the phase."""
     import os
     import statistics as st
 
@@ -2824,7 +2837,7 @@ def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
-    from torch_chain_wiring import TEE, Chain, audit_round
+    from torch_chain_wiring import VALIDATORS, Lockstep, audit_round
 
     check(bls12381._native is not None,
           "chain: the native BLS library did not load (the round would "
@@ -2842,11 +2855,12 @@ def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
     key = podr2.Podr2Key.generate(7, device=dev)
     pipe = oc.AgentPipeline(cfg, podr2_key=key, device=dev)
     data = rand_bytes((nseg * cfg.segment_size,), 91, dev).cpu().numpy()
-    chain = Chain("cess_tpu_torch")
+    ls = Lockstep(["cess_tpu_torch"], era_blocks=50)
+    chain = ls.first
     sync()
     zero_counts()
     t0 = time.perf_counter()
-    r = audit_round(pipe, data, chains=[chain], device=dev, tamper_row=1)
+    r = audit_round(pipe, data, chains=ls, device=dev, tamper_row=1)
     sync()
     round_s = time.perf_counter() - t0
     launches = counts()
@@ -2862,13 +2876,28 @@ def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
               for pair in r["proofs"].values() for b in pair),
           f"chain: a proof's wire bytes are not {wire} <= SIGMA_MAX")
     for w in deal.assigned:
-        orders = chain.state.get("sminer", "reward_orders", w)
+        orders = r["orders"][w]
         if w == r["tampered"]:
-            check(orders is None
+            check(orders is None and w not in r["paid"]
+                  and r["received"][w] == 0
                   and chain.state.get("audit", "fail_count", w) == 1,
-                  f"chain: the tampered miner {w} was not failed once")
+                  f"chain: the tampered miner {w} was not failed once, "
+                  f"or was paid")
         else:
-            check(bool(orders), f"chain: honest miner {w} was not rewarded")
+            check(bool(orders) and r["received"][w] == r["paid"].get(w)
+                  == orders[0].each_share > 0,
+                  f"chain: honest miner {w}'s first tranche did not reach "
+                  f"its beneficiary at the era boundary")
+    check(r["blocks"] == 50 and r["audit_keys"] == VALIDATORS,
+          f"chain: the round ended at block {r['blocks']} with audit keys "
+          f"{r['audit_keys']}, not at the era boundary with its validators")
+    failed = [(dict(e.data)["call"], dict(e.data)["error"])
+              for e in chain.state.events_of("system", "ExtrinsicFailed")]
+    check(failed == [("audit.save_challenge_info",
+                      "audit.ChallengeInProgress"),
+                     ("audit.submit_verify_result",
+                      "audit.BadVerdictSignature")],
+          f"chain: unexpected failed extrinsics {failed}")
     check(r["log_ok"] and len(r["verdict_log"]) == len(deal.assigned),
           "chain: the sealed verdict log does not re-verify")
     check(chain.state.recompute_root() == r["state_root"],
@@ -2941,7 +2970,7 @@ def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
     t = r["seconds"]
     split = ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in up.seconds.items())
     host = ("snapshot_and_proposals", "proofs", "checks", "seals",
-            "pallet_calls")
+            "pallet_calls", "block_hooks")
     nfrag = up.fragments.shape[0] * up.fragments.shape[1]
     print(f"phase chain: RS(2,1) upload of {nseg} x "
           f"{cfg.segment_size // MIB} MiB segments ({nfrag} fragments of "
@@ -2950,11 +2979,16 @@ def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
           f"(generation, certification and registration "
           f"{t['fillers'] * 1e3:.3f} ms); the round's host wall "
           f"{sum(t[k] for k in host) * 1e3:.3f} ms: "
-          f"{', '.join(f'{k} {t[k] * 1e3:.3f} ms' for k in host)}; phase "
+          f"{', '.join(f'{k} {t[k] * 1e3:.3f} ms' for k in host)} (the "
+          f"era block's init_block {t['era_init'] * 1e3:.3f} ms); "
+          f"{r['signed']} signed extrinsics through apply_in_block over "
+          f"{r['blocks']} blocks, 2 failed as expected (the third proposal, "
+          f"the forged seal); phase "
           f"{round_s * 1e3:.3f} ms; {len(r['proofs']) * 2} proofs of {wire} "
           f"wire bytes; verdicts {sorted(r['verdicts'].items())} (tampered "
-          f"{r['tampered']}), honest miners rewarded, the forged seal refused "
-          f"(audit.BadVerdictSignature), the verdict log re-verified in one "
+          f"{r['tampered']}), honest miners' first tranche paid at the era "
+          f"boundary {sorted(r['paid'].items())}, the audit keys kept, the "
+          f"verdict log re-verified in one "
           f"pairing product; native BLS ({bls_lib}) sign {sign_ms:.3f} ms, "
           f"verify {verify_ms:.3f} ms; state_root {r['state_root'].hex()}; kernels "
           f"byte-exact against their plain versions at the phase's shapes: "

@@ -1,13 +1,15 @@
 """The port's storage-audit pallets (cess_tpu_torch.chain) against the
-reference's (cess_tpu.chain), both wired as the reference's runtime wires
-them (tests/torch_chain_wiring.py), on the same dispatchable sequences.
+reference's (cess_tpu.chain), each inside its package's ``Runtime``
+(``RuntimeConfig(era_blocks=50)``, built by tests/torch_chain_wiring.py),
+on the same dispatchable sequences.
 
-The scenarios are those of tests/test_chain.py that touch only the
-slice's pallets. Every step runs on both chains; the arguments reach the
-port through the two codecs (encoded by the reference's, decoded by the
-port's). After every step both chains must hold the same state root and
-the same events, and a refused step must fail on both with the same
-``DispatchError`` name. Tolerance 0: state roots are protocol facts.
+The scenarios are those of tests/test_chain.py that touch the
+storage-audit pallets. Every step runs on both runtimes; the arguments
+reach the port through the two codecs (encoded by the reference's,
+decoded by the port's). After every step both runtimes must hold the
+same state root and the same events, and a refused step must fail on
+both with the same ``DispatchError`` name. Tolerance 0: state roots are
+protocol facts.
 """
 import dataclasses
 
@@ -23,7 +25,7 @@ from cess_tpu.crypto.rsa import generate_rsa_keypair
 from cess_tpu_torch import constants as pconstants
 from cess_tpu_torch.chain import state as pstate
 
-from torch_chain_wiring import ROOT, Chain, Lockstep
+from torch_chain_wiring import ROOT, Lockstep
 
 D = constants.DOLLARS
 MIB = constants.MIB
@@ -42,7 +44,7 @@ def seg_hashes(n, salt=b"s"):
 
 @pytest.fixture
 def pair():
-    p = Lockstep([Chain("cess_tpu"), Chain("cess_tpu_torch")])
+    p = Lockstep(["cess_tpu", "cess_tpu_torch"])
     for a in (ALICE, BOB):
         p.fund(a, 10_000_000 * D)
     for w in MINERS:

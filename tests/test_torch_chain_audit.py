@@ -4,8 +4,10 @@ segments of 128 KiB: fragments of 64 KiB, 128 blocks).
 
 The round (tests/torch_chain_wiring.py ``audit_round``) runs the port's
 upload, proofs, checks and seals on the port's plain path, and applies
-every extrinsic to the port's pallets and the reference's in lockstep
-(equal outcomes and state roots after each). Then, tolerance 0:
+every call as a signed extrinsic through ``Runtime.apply_in_block`` to
+the port's runtime and the reference's in lockstep (equal outcomes,
+state roots and events after each block), then runs both to the next
+era boundary. Then, tolerance 0:
 
 - the port's ``build_proof`` bytes equal the reference's ``build_proof``
   bytes on the same store and tags;
@@ -15,8 +17,10 @@ every extrinsic to the port's pallets and the reference's in lockstep
 - verdicts sealed by the port's BLS pass the reference's
   ``Audit.submit_verify_result``, and one sealed by the reference's BLS
   passes the port's; a forged seal is refused by both;
-- both chains end on the same state root, with the rewards and the
-  failure count the verdicts imply.
+- both runtimes end on the same state root, with the rewards, the
+  failure count and the fees the verdicts and the signed calls imply;
+  the honest miners' first tranche reaches their beneficiaries at the
+  era boundary, and the validators keep their audit keys across it.
 """
 import jax
 import numpy as np
@@ -32,7 +36,8 @@ from cess_tpu_torch.models import PipelineConfig
 from cess_tpu_torch.node import offchain
 from cess_tpu_torch.ops import podr2
 
-from torch_chain_wiring import TEE, Chain, audit_round
+from torch_chain_wiring import (MINERS, TEE, USER, VALIDATORS,
+                                Lockstep, audit_round)
 
 SEG = 128 * 1024
 NSEG = 4
@@ -52,7 +57,8 @@ def round_():
     key = podr2.Podr2Key.generate(7, device="cpu")
     pipe = offchain.AgentPipeline(cfg, podr2_key=key, device="cpu")
     data = np.random.default_rng(11).integers(0, 256, NSEG * SEG, np.uint8)
-    port, ref = Chain("cess_tpu_torch"), Chain("cess_tpu")
+    ls = Lockstep(["cess_tpu_torch", "cess_tpu"])
+    port, ref = ls.chains
     ref_sealed = []
 
     def seal(tee, digest, idle_ok, service_ok):
@@ -67,7 +73,7 @@ def round_():
 
         return pbls.sign(pbls.keygen(b"tee1-bls")[0], msg)
 
-    r = audit_round(pipe, data, chains=[port, ref], device="cpu",
+    r = audit_round(pipe, data, chains=ls, device="cpu",
                     tamper_row=1, seal=seal)
     return {**r, "port": port, "ref": ref, "cfg": cfg,
             "jkey": jpodr2.Podr2Key.generate(7), "ref_sealed": ref_sealed}
@@ -81,19 +87,46 @@ def test_verdicts_rewards_and_state_roots(round_):
     port, ref = r["port"], r["ref"]
     assert port.state.state_root() == ref.state.state_root() \
         == r["state_root"]
-    assert port.events_bytes() == ref.events_bytes()
+    ls = r["lockstep"]
+    assert ls.events_bytes(0) == ls.events_bytes(1)
     for w in r["deal"].assigned:
-        orders = ref.state.get("sminer", "reward_orders", w)
+        orders = r["orders"][w]
         if w == r["tampered"]:
-            assert orders is None
+            assert orders is None and w not in r["paid"]
+            assert r["received"][w] == 0
             assert ref.state.get("audit", "fail_count", w) == 1
         else:
             assert orders and orders[0].tranches_left \
                 == constants.RELEASE_NUMBER
-    assert ref.audit.challenge().miners == ()
+            assert r["received"][w] == r["paid"][w] == orders[0].each_share
+            assert ref.state.get("sminer", "reward_orders", w)[0] \
+                .tranches_left == constants.RELEASE_NUMBER - 1
     assert not ref.state.get("audit", "unverify", TEE)
     assert [e.name for e in ref.state.events_of("audit", "VerifyResult")] \
         == ["VerifyResult"] * 3
+
+
+def test_signed_blocks_fees_and_the_era_boundary(round_):
+    r = round_
+    port, ref = r["port"], r["ref"]
+    assert r["blocks"] == 50 == ref.state.block
+    assert r["audit_keys"] == VALIDATORS == ref.audit.keys()
+    failed = [(dict(e.data)["call"], dict(e.data)["error"])
+              for e in ref.state.events_of("system", "ExtrinsicFailed")]
+    assert failed == [("audit.save_challenge_info",
+                       "audit.ChallengeInProgress"),
+                      ("audit.submit_verify_result",
+                       "audit.BadVerdictSignature")]
+    # regnstk x3, register, fillers x3, the user's 3, reports x3 and
+    # calculate_end, proposals x3, proofs x3, the forged seal and 3
+    assert r["signed"] == 3 + 1 + 3 + 3 + 4 + 3 + 3 + 4
+    assert ref.system.nonce(USER) == 3 and ref.system.nonce(TEE) == 5
+    assert all(ref.system.nonce(w) == 4 for w in MINERS)
+    assert ref.system.account_key(TEE) == r["lockstep"].keys[TEE].public
+    assert ref.balances.free("treasury") > 0      # 80% of every fee
+    assert [e.name for e in ref.state.events_of("system", "ExtrinsicFailed")
+            ] == [e.name for e in port.state.events_of(
+                "system", "ExtrinsicFailed")]
 
 
 def test_build_proof_bytes_equal_reference(round_):
@@ -142,8 +175,9 @@ def test_seals_verify_across_packages(round_):
     ref_log = r["ref"].audit.verdicts()
     assert jaudit.reverify_verdicts_batch(
         ref_log, {TEE: r["ref"].tee_worker.bls_keys_of(TEE)})
-    assert r["ref"].codec.encode(ref_log) \
-        == r["port"].codec.encode(r["verdict_log"])
+    ls = r["lockstep"]
+    assert ls.codecs[1].encode(ref_log) == ls.codecs[0].encode(
+        r["verdict_log"])
 
 
 def test_port_key_is_the_references(round_):

@@ -7,8 +7,11 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_chain_card.py
 
-The round on the card must launch the kernels and reach the same proofs,
-verdicts and state root as the same round on the CPU (the plain path).
+The round applies every call as a signed extrinsic through the port's
+``Runtime.apply_in_block``, block by block, and runs to the next era
+boundary. On the card it must launch the kernels and reach the same
+proofs, verdicts, rewards and state root as the same round on the CPU
+(the plain path).
 The CPU test of the round against the JAX package is
 ``test_torch_chain_audit.py``; ``chip_smoke.py``'s phase ``chain`` runs it
 at full width.
@@ -22,7 +25,7 @@ from cess_tpu_torch.models import PipelineConfig
 from cess_tpu_torch.node import offchain
 from cess_tpu_torch.ops import podr2, podr2_kernel, rs_kernel
 
-from torch_chain_wiring import Chain, audit_round
+from torch_chain_wiring import VALIDATORS, Lockstep, audit_round
 
 pytestmark = pytest.mark.gpu
 
@@ -46,9 +49,9 @@ def run(device):
     key = podr2.Podr2Key.generate(7, device=device)
     pipe = offchain.AgentPipeline(cfg, podr2_key=key, device=device)
     data = np.random.default_rng(5).integers(0, 256, 4 * SEG, np.uint8)
-    chain = Chain("cess_tpu_torch")
-    return audit_round(pipe, data, chains=[chain], device=device,
-                       tamper_row=2), chain
+    ls = Lockstep(["cess_tpu_torch"])
+    return audit_round(pipe, data, chains=ls, device=device,
+                       tamper_row=2), ls.first
 
 
 def test_audit_round_on_the_card_matches_the_cpu(cuda_device):
@@ -65,3 +68,5 @@ def test_audit_round_on_the_card_matches_the_cpu(cuda_device):
                                 for w in card["deal"].assigned}
     assert chain.state.get("audit", "fail_count", tampered) == 1
     assert card["log_ok"]
+    assert card["paid"] == cpu["paid"] and tampered not in card["paid"]
+    assert len(card["paid"]) == 2 and card["audit_keys"] == VALIDATORS

@@ -2,9 +2,10 @@
 (cess_tpu.codec), on the CPU.
 
 Tolerance 0: encoded bytes are protocol facts (signatures and state
-roots are taken over them). For every dataclass the slice registers, the
-port's bytes equal the reference's, and a blob encoded by either package
-decodes in the other to equal fields. The reference's malformed inputs
+roots are taken over them). For every dataclass the port registers (its
+storage-audit plane's and its runtime's), the port's bytes equal the
+reference's, and a blob encoded by either package decodes in the other
+to equal fields. The reference's malformed inputs
 (tests/test_codec.py: the depth bound, truncation, trailing bytes,
 unknown tags and names) fail the same way in both.
 """
@@ -15,12 +16,16 @@ import pytest
 
 import cess_tpu.chain.audit  # noqa: F401  (registers the slice's types)
 import cess_tpu.chain.file_bank  # noqa: F401
+import cess_tpu.chain.runtime  # noqa: F401
 import cess_tpu.chain.tee_worker  # noqa: F401
+import cess_tpu.node.consensus  # noqa: F401
 import cess_tpu.node.offchain  # noqa: F401
 from cess_tpu import codec as jcodec
 import cess_tpu_torch.chain.audit  # noqa: F401
 import cess_tpu_torch.chain.file_bank  # noqa: F401
+import cess_tpu_torch.chain.runtime  # noqa: F401
 import cess_tpu_torch.chain.tee_worker  # noqa: F401
+import cess_tpu_torch.node.consensus  # noqa: F401
 import cess_tpu_torch.node.offchain  # noqa: F401
 from cess_tpu_torch import codec as pcodec
 
@@ -28,7 +33,11 @@ SLICE_TYPES = ["AttestationReport", "ChallengeInfo", "DealInfo", "Event",
                "FileInfo", "MinerInfo", "MinerSnapshot", "NetSnapshot",
                "OwnedSpace", "Proof", "ProveInfo", "RestoralOrder",
                "RestoralTarget", "RewardOrder", "RsaPublicKey", "SegmentInfo",
-               "SignerCert", "TeeWorkerInfo", "UserBrief", "VerdictRecord"]
+               "SignerCert", "TeeWorkerInfo", "UserBrief", "VerdictRecord",
+               # the runtime's (the rest of chain/, node/consensus, vrf)
+               "AssetDetails", "AssetMetadata", "Bill", "CacherInfo",
+               "Exposure", "OssInfo", "SignedExtrinsic", "SlotClaim",
+               "Vote", "VrfProof"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -138,6 +138,15 @@ def test_known_answer_digest_of_port():
 
 def test_port_imports_no_jax_and_no_cess_tpu():
     code = ("import sys\n"
+            # an era boundary and a migration run first: their lazy
+            # imports (election -> node.consensus, migrations -> evm,
+            # staking, contracts, crypto.rsa) must reach the port's own
+            "from cess_tpu_torch.chain.runtime import Runtime, RuntimeConfig\n"
+            "rt = Runtime(RuntimeConfig(era_blocks=2,\n"
+            "                           genesis_spec_version=109))\n"
+            "rt.apply_extrinsic('root', 'system.apply_runtime_upgrade')\n"
+            "rt.run_to_block(2)\n"
+            "assert 'cess_tpu_torch.node.consensus' in sys.modules\n"
             "import cess_tpu_torch, cess_tpu_torch.models.pipeline\n"
             "import cess_tpu_torch.convert, cess_tpu_torch.kat\n"
             "import cess_tpu_torch.ops.audit_backend, cess_tpu_torch.ops.rs\n"
@@ -173,6 +182,27 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "import cess_tpu_torch.chain.attestation\n"
             "import cess_tpu_torch.chain.tee_worker, cess_tpu_torch.chain.audit\n"
             "from cess_tpu_torch.crypto import verify_bls\n"
+            "import cess_tpu_torch.crypto.ripemd160\n"
+            "import cess_tpu_torch.crypto.secp256k1, cess_tpu_torch.crypto.vrf\n"
+            "import cess_tpu_torch.node.consensus\n"
+            "from cess_tpu_torch.node import Rrsc, SlotClaim, elect_validators\n"
+            "import cess_tpu_torch.chain.overlay, cess_tpu_torch.chain.oss\n"
+            "import cess_tpu_torch.chain.scheduler_credit\n"
+            "import cess_tpu_torch.chain.staking, cess_tpu_torch.chain.offences\n"
+            "import cess_tpu_torch.chain.im_online\n"
+            "import cess_tpu_torch.chain.extrinsic, cess_tpu_torch.chain.indices\n"
+            "import cess_tpu_torch.chain.assets, cess_tpu_torch.chain.cacher\n"
+            "import cess_tpu_torch.chain.governance\n"
+            "import cess_tpu_torch.chain.contracts\n"
+            "import cess_tpu_torch.chain.evm_interp, cess_tpu_torch.chain.evm\n"
+            "import cess_tpu_torch.chain.election\n"
+            "import cess_tpu_torch.chain.migrations\n"
+            "import cess_tpu_torch.chain.weights_generated\n"
+            "from cess_tpu_torch.chain.runtime import (ROOT, TREASURY,\n"
+            "    ROOT_ONLY, SIGNED_CALLS, DISPATCHABLE, FEELESS, CALL_WEIGHTS,\n"
+            "    WEIGHT_FEE, HAND_WEIGHTS)\n"
+            "from cess_tpu_torch.chain.system import System\n"
+            "assert callable(System.apply_runtime_upgrade)\n"
             "from cess_tpu_torch.node.offchain import (Proof, build_proof,\n"
             "                                         proof_wire_bytes)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
