@@ -20,29 +20,33 @@ pinned-memory streaming ingest ``StreamingIngest``, with ``policy``,
 ``buckets`` and ``stats``);
 ``resilience`` (fault injection, retry, breakers, their counters);
 ``obs`` (``trace``, ``flight``, ``prom``: spans, the flight recorder, the
-engine's latency histograms); ``node`` (``hashing``, ``offchain``: the
-device half of the off-chain agents, host arrays in and out);
+engine's latency histograms; the detector and control planes);
+``codec``, ``crypto`` and ``chain`` (the chain's runtime, host code);
+``node`` (the node: chain spec, blocks, finality, block store, RPC, TCP
+gossip, the CLI, and the off-chain agents with their device steps);
 ``convert`` (keys from the TPU package's arrays); ``kat`` (the
-known-answer digest); ``_build``.
+known-answer digest); ``_build``. The host layers import without torch:
+the torch-backed exports below resolve on first use.
 """
-from .parallel import (CorpusPlan, Mesh, ShardedTensor, global_mesh,
-                       init_multihost, make_mesh, pool_stream_entry,
-                       run_corpus, sharded_pipeline_step, sharded_stream_step,
-                       stream_entry)
-from .serve.pool import DeviceLane, DevicePool
+import importlib
 
-__all__ = [
-    "CorpusPlan",
-    "DeviceLane",
-    "DevicePool",
-    "Mesh",
-    "ShardedTensor",
-    "global_mesh",
-    "init_multihost",
-    "make_mesh",
-    "pool_stream_entry",
-    "run_corpus",
-    "sharded_pipeline_step",
-    "sharded_stream_step",
-    "stream_entry",
-]
+# torch-backed exports resolve on first use, so the host layers (``chain``,
+# ``crypto``, ``codec``, ``node`` without its agents) import without torch
+_LAZY = {
+    **{name: ".parallel" for name in (
+        "CorpusPlan", "Mesh", "ShardedTensor", "global_mesh",
+        "init_multihost", "make_mesh", "pool_stream_entry", "run_corpus",
+        "sharded_pipeline_step", "sharded_stream_step", "stream_entry")},
+    "DeviceLane": ".serve.pool",
+    "DevicePool": ".serve.pool",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_LAZY[name], __name__), name)
+    globals()[name] = value
+    return value

@@ -1,13 +1,30 @@
-"""The device half of the off-chain agents: gateway upload, miner proof
-and repair, TEE filler tags and proof checks, on the port's device.
+"""Off-chain agents: OSS gateway, storage miner, TEE, validator OCW,
+and the device steps they run.
 
-The counterpart of what ``cess_tpu/node/offchain.py`` computes on the
-device, and of its proof wire format (``Proof``, ``proof_wire_bytes``,
-``build_proof``: the bytes a miner submits to ``chain.audit``). The
-agents' classes (``OssGateway``, ``MinerAgent``, ``TeeAgent``,
-``ValidatorOcw``) are not ported: they need a node. These functions take
-and return host arrays and bytes, so an agent on either side of that
-boundary can call them.
+The counterpart of ``cess_tpu/node/offchain.py``. The agents are in-process
+around a ``node.network.Node`` and speak to the chain only through
+extrinsics, events and the fragment transfer channel; each one's
+``on_block`` runs after every imported block:
+
+- ``OssGateway.upload``: segments, encodes and tags on the device
+  (``upload_batch``), declares on chain, serves the fragments;
+- ``MinerAgent``: fetches its rows, reports the transfer, proves each
+  challenge over the bytes it holds (``build_proof``), repairs restoral
+  orders by whole fragments or by regenerating symbol chains;
+- ``TeeAgent``: certifies and tags fillers, verifies queued proofs
+  (``verify_owed``) and seals each verdict with its BLS key;
+- ``ValidatorOcw``: proposes the challenge snapshot and mines the
+  unsigned election (host only).
+
+Each agent takes the reference's ``engine=`` (and the miner ``retry=``
+and ``clock=``); the fault seams ``offchain.fetch``,
+``offchain.fetch_bytes``, ``offchain.symbol`` and
+``offchain.symbol_bytes``, the spans ``offchain.upload``, ``.transfer``,
+``.prove``, ``.verify`` and ``.repair`` and the custody notes are the
+reference's. The agents run where their pipeline and key lie.
+
+The device steps take and return host arrays and bytes, so an agent on
+either side of the package boundary can call them:
 
 - ``HostPodr2``: the ``podr2`` surface the agents read (constants,
   ``keys_equal``, ``fragment_id_from_hash``, ``tag_fragments``,
@@ -21,18 +38,17 @@ boundary can call them.
 - ``upload_batch``, ``prove_owed``, ``verify_owed``, ``certify_fillers``,
   ``warm_restoral``, ``repair_via_fragments``, ``repair_symbol`` and
   ``repair_via_symbols``: the agents' device steps, each with an optional
-  port engine (``serve.SubmissionEngine``) and ``tenant=``.
+  port engine (``serve.SubmissionEngine``) and ``tenant=``; ``Proof``,
+  ``proof_wire_bytes`` and ``build_proof``: the proof's wire bytes.
 
-Every entry point runs on the card unless given ``device="cpu"``. The
-steps open the TPU package's spans (``offchain.upload``, ``.prove``,
-``.verify``, ``.repair``) on ``obs.trace``, and ``repair_symbol`` carries
-its fault seams ``offchain.symbol`` (drop) and ``offchain.symbol_bytes``
-(corrupt) on ``resilience.faults``; both are no-ops unless armed.
+Every entry point runs on the card unless given ``device="cpu"`` (or,
+for an agent, a pipeline and key on the CPU).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import os
 import threading
 import time
@@ -44,6 +60,7 @@ import torch
 from .. import codec
 from .._device import resolve_device
 from ..models.pipeline import PipelineConfig, StoragePipeline
+from ..obs import flight as _flight
 from ..obs import trace
 from ..ops import pfield as pf
 from ..ops import podr2, regen
@@ -352,12 +369,13 @@ def _hash_all(blobs) -> list[bytes]:
 
 
 def upload_batch(pipeline: AgentPipeline, data, *,
-                 tenant: str | None = None) -> Upload:
+                 tenant: str | None = None, file: str | None = None
+                 ) -> Upload:
     """The device half of ``OssGateway.upload``: ``data`` (bytes or a
     uint8 array) zero-padded into segments, encoded, every fragment
     hashed into its identity and id, and tagged from the fragments the
     encode left on the device (they are fetched to the host once and
-    never uploaded again)."""
+    never uploaded again). ``file``: the file name the span carries."""
     cfg = pipeline.config
     buf = np.frombuffer(data, dtype=np.uint8)
     size = buf.size
@@ -366,7 +384,8 @@ def upload_batch(pipeline: AgentPipeline, data, *,
         buf = np.concatenate([buf, np.zeros(pad, np.uint8)])
     segments = buf.reshape(-1, cfg.segment_size)
     rows = cfg.k + cfg.m
-    with trace.span("offchain.upload", sys="offchain",
+    named = {} if file is None else {"file": file}
+    with trace.span("offchain.upload", sys="offchain", **named,
                     segments=segments.shape[0], size=size):
         t0 = time.perf_counter()
         handle = pipeline.encode_step(segments, tenant=tenant)
@@ -403,28 +422,35 @@ def prove_owed(seed: bytes, owed, store, tags, *, limbs: int | None = None,
     none held the proof is all zero. Only the challenged blocks and their
     tags are gathered on the host and go to the device (or the engine's
     prove queue)."""
+    held = sum(1 for h in owed if h in store)
+    with trace.span("offchain.prove", sys="offchain", owed=len(owed),
+                    held=held):
+        return _prove(seed, owed, store, tags, limbs, engine, tenant,
+                      device)
+
+
+def _prove(seed, owed, store, tags, limbs, engine, tenant, device
+           ) -> tuple[np.ndarray, np.ndarray]:
     held = [h for h in owed if h in store]
     if limbs is None:
         limbs = np.asarray(next(iter(tags.values()))).shape[-1] if tags \
             else podr2.LIMBS
-    with trace.span("offchain.prove", sys="offchain", owed=len(owed),
-                    held=len(held)):
-        if not held:
-            return (np.zeros((podr2.SECTORS,), np.uint32),
-                    np.zeros((limbs,), np.uint32))
-        ops = HostPodr2(device)
-        blocks = np.asarray(tags[held[0]]).shape[0]
-        idx, nu = ops.gen_challenge(seed, blocks)
-        r = ops.aggregate_coeffs(seed, _ids(held))
-        sel = np.stack([np.frombuffer(store[h], np.uint8).reshape(
-            blocks, -1)[idx] for h in held]).reshape(len(held), -1)
-        tsel = np.stack([np.asarray(tags[h])[idx] for h in held])
-        order = np.arange(len(idx), dtype=np.int32)
-        if engine is not None and engine.audit is not None:
-            mu, sigma = engine.prove_aggregate(sel, tsel, order, nu, r,
-                                               tenant=tenant)
-        else:
-            mu, sigma = ops.prove_aggregate(sel, tsel, order, nu, r)
+    if not held:
+        return (np.zeros((podr2.SECTORS,), np.uint32),
+                np.zeros((limbs,), np.uint32))
+    ops = HostPodr2(device)
+    blocks = np.asarray(tags[held[0]]).shape[0]
+    idx, nu = ops.gen_challenge(seed, blocks)
+    r = ops.aggregate_coeffs(seed, _ids(held))
+    sel = np.stack([np.frombuffer(store[h], np.uint8).reshape(
+        blocks, -1)[idx] for h in held]).reshape(len(held), -1)
+    tsel = np.stack([np.asarray(tags[h])[idx] for h in held])
+    order = np.arange(len(idx), dtype=np.int32)
+    if engine is not None and engine.audit is not None:
+        mu, sigma = engine.prove_aggregate(sel, tsel, order, nu, r,
+                                           tenant=tenant)
+    else:
+        mu, sigma = ops.prove_aggregate(sel, tsel, order, nu, r)
     return (np.ascontiguousarray(np.asarray(mu), dtype=np.uint32),
             np.ascontiguousarray(np.asarray(sigma), dtype=np.uint32))
 
@@ -522,6 +548,11 @@ def certify_fillers(key: podr2.Podr2Key, miner: str, indices, blobs,
     for i, blob in zip(indices, blobs):
         if len(blob) != size or blob != filler_bytes(miner, i, size):
             raise ValueError(f"filler {i} content not canonical")
+    return _tag_blobs(key, blobs, device)
+
+
+def _tag_blobs(key, blobs, device) -> tuple[list[bytes], np.ndarray]:
+    """The hashes of ``blobs`` and their tags [F, blocks, limbs] uint32."""
     hashes = [fragment_hash(b) for b in blobs]
     tags = HostPodr2(device).tag_fragments(
         key, _ids(hashes),
@@ -558,15 +589,20 @@ def repair_via_fragments(k: int, m: int, survivors, present, row: int, *,
     present = tuple(present)
     with trace.span("offchain.repair", sys="offchain", row=row,
                     survivors=len(present), mode="fragments"):
-        stacked = np.stack([np.frombuffer(s, dtype=np.uint8)
-                            for s in survivors])
-        if engine is not None and engine.codec is not None:
-            rec = engine.reconstruct(stacked, present, (row,),
-                                     tenant=tenant)
-        else:
-            rec = host_codec(k, m, device=device).reconstruct(
-                stacked, present, (row,))
-        return np.asarray(rec)[0].tobytes()
+        return _rebuild(k, m, survivors, present, row, engine, tenant,
+                        device)
+
+
+def _rebuild(k, m, survivors, present, row, engine, tenant, device
+             ) -> bytes:
+    stacked = np.stack([np.frombuffer(s, dtype=np.uint8)
+                        for s in survivors])
+    if engine is not None and engine.codec is not None:
+        rec = engine.reconstruct(stacked, present, (row,), tenant=tenant)
+    else:
+        rec = host_codec(k, m, device=device).reconstruct(
+            stacked, present, (row,))
+    return np.asarray(rec)[0].tobytes()
 
 
 def repair_symbol(k: int, m: int, fragment, coeff: int, acc=None, *,
@@ -620,3 +656,620 @@ def repair_via_symbols(k: int, m: int, present, row: int, helpers, *,
             if acc is None:
                 return None
         return acc.tobytes()
+
+
+# -- the agents around a node -------------------------------------------------
+# The reference's agent classes (``cess_tpu/node/offchain.py``) on the
+# device steps above: each agent's ``on_block`` runs after every imported
+# block and speaks to the chain only through extrinsics, events and the
+# fragment transfer channel. Every device step runs where the agent's
+# pipeline or key lies (the card unless they were built on the CPU), or on
+# the engine it was given (``serve.SubmissionEngine``); results are the
+# same bytes either way.
+
+def _agent_pipeline(pipeline) -> AgentPipeline:
+    """``pipeline`` as an ``AgentPipeline``: one as it is, a port
+    ``StoragePipeline`` behind one (sharing its device, key and engine)."""
+    if isinstance(pipeline, AgentPipeline):
+        return pipeline
+    if not isinstance(pipeline, StoragePipeline):
+        raise TypeError(f"{type(pipeline).__name__} is not a port pipeline")
+    wrapped = AgentPipeline.__new__(AgentPipeline)
+    wrapped.pipeline = pipeline
+    wrapped.fragment_uploads = 0
+    wrapped._lock = threading.Lock()
+    return wrapped
+
+
+class OssGateway:
+    """The user-facing gateway: chunk -> encode -> tag -> declare.
+
+    Every engine submit an upload makes is tagged with the uploading
+    owner's account (the per-tenant accounting of ``obs/slo.py``).
+    ``last_upload``: the ``Upload`` of the newest upload, with its
+    stages' host seconds."""
+
+    def __init__(self, node, account: str, pipeline):
+        self.node = node
+        self.account = account
+        self.pipeline = _agent_pipeline(pipeline)
+        self.fragment_store: dict[bytes, bytes] = {}   # hash -> bytes
+        self.tag_store: dict[bytes, np.ndarray] = {}   # hash -> [blocks] u32
+        self.last_upload: Upload | None = None
+
+    def upload(self, owner: str, bucket: str, file_name: str,
+               data: bytes) -> bytes:
+        """Segment, encode and tag on the device (``upload_batch``);
+        declare on chain; keep the fragments for the miners to fetch.
+        Returns the file hash."""
+        from ..chain.file_bank import UserBrief
+
+        cfg = self.pipeline.config
+        up = upload_batch(self.pipeline, data, tenant=owner, file=file_name)
+        self.last_upload = up
+        for i, hashes in enumerate(up.fragment_hashes):
+            for j, h in enumerate(hashes):
+                self.fragment_store[h] = up.fragments[i, j].tobytes()
+                self.tag_store[h] = up.tags[i, j]
+        seg_list = list(zip(up.segment_hashes, up.fragment_hashes))
+        self.node.submit_extrinsic(
+            self.account, "file_bank.upload_declaration", up.file_hash,
+            seg_list, UserBrief(owner, file_name, bucket), len(data))
+        # custody lineage: one encode and dispatch event per upload
+        _flight.note("custody", "dispatch", owner=owner, file=up.file_hash,
+                     k=cfg.k, m=cfg.m, segments=seg_list)
+        return up.file_hash
+
+
+SLOW_FILLER_WORK = 2048   # sequential hashes per 512-B block (cost knob)
+
+
+def filler_seed_commitment(secret: bytes) -> bytes:
+    """The on-chain commitment to a miner's filler seed."""
+    return hashlib.sha256(b"cess-filler-seed:" + secret).digest()
+
+
+def slow_filler_bytes(secret: bytes, index: int, size: int,
+                      work: int = SLOW_FILLER_WORK) -> bytes:
+    """Secret-seeded filler content: each 512-byte block ends a
+    ``work``-step sequential hash chain over (secret, index, block), so
+    the network cannot derive it and the miner cannot cheaply regenerate
+    challenged blocks inside an audit window. The TEE tags it once at
+    certification; audits verify against the tags."""
+    block_bytes = 512
+    out = bytearray()
+    for j in range(-(-size // block_bytes)):
+        state = hashlib.sha256(
+            b"cess-pois-filler:" + secret + index.to_bytes(8, "little")
+            + j.to_bytes(8, "little")).digest()
+        for _ in range(work):          # the sequential cost
+            state = hashlib.sha256(state).digest()
+        for c in range(block_bytes // 32):   # cheap expansion
+            out += hashlib.sha256(state + c.to_bytes(4, "little")).digest()
+    return bytes(out[:size])
+
+
+class MinerAgent:
+    """A storage miner: fetches its rows of each deal, reports the
+    transfer, answers each challenge with aggregated proofs over the bytes
+    it really holds (drop ``store`` entries to lose data), and repairs
+    restoral orders from its peers' rows.
+
+    ``retry``: a ``resilience.RetryPolicy`` for fragment transfers (None:
+    one attempt); ``clock``: any object with ``sleep(seconds)`` for the
+    retry backoff (None: the wall clock); ``engine``: proofs and repairs
+    go through its prove and repair queues (geometry-checked).
+    ``repair_mode``: "fragments" (k whole survivor rows in) or "symbols"
+    (the regenerating chain through the helpers, one aggregate in)."""
+
+    def __init__(self, node, account: str, gateways: list[OssGateway],
+                 pipeline, engine=None, retry=None, clock=None):
+        self.node = node
+        self.account = account
+        self.gateways = gateways
+        self.pipeline = _agent_pipeline(pipeline)
+        self.retry = retry
+        self.clock = clock
+        self.engine = None
+        if engine is not None:
+            self.attach_engine(engine)
+        self.repair_mode = "fragments"
+        self._mode_mu = threading.Lock()
+        # ingress accounting: the bytes that crossed the wire into this
+        # miner for a repair against the bytes it recovered
+        self.repair_ingress_bytes = 0
+        self.repair_recovered_bytes = 0
+        self.repair_symbol_repairs = 0
+        self.repair_whole_repairs = 0
+        self.repair_fallbacks = 0
+        self.store: dict[bytes, bytes] = {}        # fragment hash -> bytes
+        self.tags: dict[bytes, np.ndarray] = {}
+        self.filler_store: dict[bytes, bytes] = {}  # filler hash -> bytes
+        self.filler_tags: dict[bytes, np.ndarray] = {}
+        self._reported: set[bytes] = set()
+        self._proved_round: int = -1
+
+    @property
+    def device(self) -> torch.device:
+        return self.pipeline.device
+
+    def attach_engine(self, engine) -> None:
+        """Bind a submission engine; one whose codec geometry differs from
+        the pipeline's is refused (ValueError)."""
+        if engine is not None and engine.codec is not None \
+                and (engine.codec.k, engine.codec.m) \
+                != (self.pipeline.config.k, self.pipeline.config.m):
+            raise ValueError(
+                f"engine codec RS({engine.codec.k},{engine.codec.m}) != "
+                f"miner pipeline RS({self.pipeline.config.k},"
+                f"{self.pipeline.config.m})")
+        self.engine = engine
+
+    def set_repair_mode(self, mode: str) -> None:
+        """Flip the repair dispatch mode (thread-safe); a change is noted
+        to the flight recorder as ("repair", "mode")."""
+        if mode not in ("symbols", "fragments"):
+            raise ValueError(
+                f"repair_mode must be 'symbols' or 'fragments', "
+                f"got {mode!r}")
+        with self._mode_mu:
+            frm = self.repair_mode
+            if frm == mode:
+                return
+            self.repair_mode = mode
+        _flight.note("repair", "mode", miner=self.account, frm=frm,
+                     to=mode)
+
+    # -- fillers ------------------------------------------------------------
+    def setup_fillers(self, tee: "TeeAgent", count: int) -> None:
+        """``count`` fillers, certified and tagged by the TEE and
+        registered on chain (idle space enters the ledger)."""
+        size = self.pipeline.config.fragment_size
+        blobs = [filler_bytes(self.account, i, size) for i in range(count)]
+        hashes, tags, sig = tee.certify_fillers(self.account,
+                                                list(range(count)), blobs)
+        self._keep_fillers(hashes, blobs, tags)
+        self.node.submit_extrinsic(self.account, "file_bank.upload_filler",
+                                   tuple(hashes), tee.controller, sig)
+
+    def _keep_fillers(self, hashes, blobs, tags) -> None:
+        for h, blob, tag in zip(hashes, blobs, tags):
+            self.filler_store[h] = blob
+            self.filler_tags[h] = tag
+
+    def commit_filler_seed(self, secret: bytes) -> None:
+        """Submit the one-time seed commitment; it must be in a block
+        before the TEE certifies against it."""
+        self.node.submit_extrinsic(self.account,
+                                   "sminer.commit_filler_seed",
+                                   filler_seed_commitment(secret))
+
+    def setup_fillers_pois(self, tee: "TeeAgent", count: int,
+                           secret: bytes,
+                           work: int = SLOW_FILLER_WORK) -> None:
+        """Secret-seeded fillers: the TEE derives and certifies them
+        against the on-chain commitment, then the batch is registered."""
+        hashes, tags, sig, blobs = tee.certify_pois_fillers(
+            self.account, secret, list(range(count)), work)
+        self._keep_fillers(hashes, blobs, tags)
+        self.node.submit_extrinsic(self.account, "file_bank.upload_filler",
+                                   tuple(hashes), tee.controller, sig)
+
+    # -- deal servicing -----------------------------------------------------
+    def _fetch(self, frag_hash: bytes) -> bool:
+        for gw in self.gateways:
+            blob = self._transfer(gw, frag_hash)
+            if blob is not None:
+                self.store[frag_hash] = blob
+                self.tags[frag_hash] = gw.tag_store[frag_hash]
+                return True
+        return False
+
+    def _transfer(self, gw: OssGateway, frag_hash: bytes) -> bytes | None:
+        """One gateway transfer: seam ``offchain.fetch`` drops it,
+        ``offchain.fetch_bytes`` corrupts the payload; the bytes must hash
+        to the on-chain identity, and the policy retries. Returns the
+        verified bytes or None."""
+        attempts = 1 if self.retry is None else self.retry.max_attempts
+        for attempt in range(1, attempts + 1):
+            if attempt > 1:
+                (self.clock or time).sleep(
+                    self.retry.delay_for(attempt - 1, token=frag_hash))
+            if not faults.allow("offchain.fetch"):
+                continue             # transfer dropped: transient
+            blob = gw.fragment_store.get(frag_hash)
+            if blob is None:
+                return None          # the gateway lacks it: not transient
+            blob = faults.corrupt("offchain.fetch_bytes", blob)
+            if fragment_hash(blob) == frag_hash:
+                return blob
+        return None
+
+    def on_block(self, node) -> None:
+        rt = node.runtime
+        for (fh,), deal in list(rt.state.iter_prefix("file_bank", "deal")):
+            if self.account not in deal.assigned or fh in self._reported \
+                    or self.account in deal.complete:
+                continue
+            row = deal.assigned.index(self.account)
+            with trace.span("offchain.transfer", sys="offchain",
+                            miner=self.account, file=fh):
+                done = all(self._fetch(seg.fragment_hashes[row])
+                           for seg in deal.segments)
+            if done:
+                node.submit_extrinsic(self.account,
+                                      "file_bank.transfer_report", fh)
+                self._reported.add(fh)
+                _flight.note("custody", "transfer", miner=self.account,
+                             file=fh, row=row,
+                             frags=tuple(seg.fragment_hashes[row]
+                                         for seg in deal.segments))
+        ch = rt.audit.challenge()
+        if ch is not None and not ch.cleared \
+                and rt.state.block <= ch.challenge_deadline \
+                and ch.start != self._proved_round \
+                and any(s.miner == self.account for s in ch.miners):
+            self._submit_proof(node, ch)
+            self._proved_round = ch.start
+
+    def _submit_proof(self, node, ch) -> None:
+        """The idle and service proofs over the owed sets frozen in the
+        challenge snapshot, each one aggregated (mu, sigma) on the wire."""
+        seed = b"".join(ch.net.randoms)
+        snap = next(s for s in ch.miners if s.miner == self.account)
+        limbs = self.pipeline.podr2_key.limbs
+        with trace.span("offchain.prove", sys="offchain",
+                        miner=self.account, round=ch.start,
+                        service=len(snap.service_frags),
+                        idle=len(snap.fillers)):
+            service, idle = (codec.encode(Proof(*_prove(
+                seed, list(owed), store, tags, limbs, self.engine,
+                self.account, self.device)))
+                for owed, store, tags in (
+                    (snap.service_frags, self.store, self.tags),
+                    (snap.fillers, self.filler_store, self.filler_tags)))
+            node.submit_extrinsic(self.account, "audit.submit_proof",
+                                  idle, service)
+
+    # -- restoral servicing -------------------------------------------------
+    def warm_restoral(self) -> None:
+        """Prepare the repair of each lost row from the k lowest other
+        rows, in the engine's program cache or on the codec ``try_repair``
+        uses (``warm_restoral`` above)."""
+        cfg = self.pipeline.config
+        warm_restoral(cfg.k, cfg.m, cfg.fragment_size, engine=self.engine,
+                      device=self.device)
+
+    def repair_symbol(self, frag_hash: bytes, coeff: int,
+                      acc: np.ndarray | None = None) -> np.ndarray | None:
+        """Helper side of a regenerating repair: fold this miner's
+        fragment into the travelling sum (``acc ^ coeff * fragment``) and
+        return it, or None when this helper cannot serve (fragment not
+        held, seam ``offchain.symbol``). The outgoing sum passes seam
+        ``offchain.symbol_bytes``; the rebuilder checks its hash."""
+        cfg = self.pipeline.config
+        return repair_symbol(cfg.k, cfg.m, self.store.get(frag_hash), coeff,
+                             acc, engine=self.engine, tenant=self.account,
+                             device=self.device)
+
+    def _repair_via_symbols(self, seg, row: int,
+                            present: tuple[int, ...],
+                            holders: dict[int, "MinerAgent"],
+                            cfg: PipelineConfig) -> bytes | None:
+        """Walk the repair-symbol chain through the holders; only the last
+        fragment-sized sum reaches this miner. None when a hop refuses."""
+        try:
+            coeffs = regen.repair_coeffs(cfg.k, cfg.m, present, (row,))
+        except ValueError:
+            return None
+        acc = None
+        for j, coeff in zip(present, coeffs):
+            acc = holders[j].repair_symbol(seg.fragment_hashes[j],
+                                           int(coeff), acc)
+            if acc is None:
+                return None
+        # the sum crossed the wire whether or not it hashes clean
+        self.repair_ingress_bytes += acc.nbytes
+        return acc.tobytes()
+
+    def _repair_via_fragments(self, seg, row: int,
+                              present: tuple[int, ...],
+                              holders: dict[int, "MinerAgent"],
+                              cfg: PipelineConfig) -> bytes:
+        """Whole-fragment repair: k survivor rows in, the lost row
+        rebuilt on the engine's repair queue or the device's codec."""
+        survivors = [holders[j].store[seg.fragment_hashes[j]]
+                     for j in present]
+        self.repair_ingress_bytes += sum(len(s) for s in survivors)
+        return _rebuild(cfg.k, cfg.m, survivors, present, row, self.engine,
+                        self.account, self.device)
+
+    def try_repair(self, frag_hash: bytes, peers: list["MinerAgent"],
+                   gateways: list[OssGateway] | None = None) -> bool:
+        """Claim and repair a lost fragment from the peers' rows, then
+        report completion. Under "symbols" a refused hop or an aggregate
+        that fails its hash falls back to "fragments" (counted in
+        ``repair_fallbacks`` and noted to the flight recorder). Either way
+        the rebuilt bytes must hash to the on-chain identity before they
+        are stored."""
+        rt = self.node.runtime
+        order = rt.file_bank.restoral_order(frag_hash)
+        if order is None:
+            return False
+        f = rt.file_bank.file(order.file_hash)
+        if f is None:
+            return False
+        seg = next(s for s in f.segments if frag_hash in s.fragment_hashes)
+        row = seg.fragment_hashes.index(frag_hash)
+        cfg = self.pipeline.config
+        holders: dict[int, MinerAgent] = {}
+        for j, h in enumerate(seg.fragment_hashes):
+            if j == row:
+                continue
+            for peer in peers:
+                if h in peer.store:
+                    holders[j] = peer
+                    break
+            if len(holders) == cfg.k:
+                break
+        if len(holders) < cfg.k:
+            return False
+        present = tuple(holders)
+        mode = self.repair_mode
+        via_symbols = False
+        ingress0 = self.repair_ingress_bytes
+        with trace.span("offchain.repair", sys="offchain",
+                        miner=self.account, row=row,
+                        survivors=len(present), mode=mode):
+            blob = None
+            if mode == "symbols":
+                blob = self._repair_via_symbols(seg, row, present,
+                                                holders, cfg)
+                if blob is not None and fragment_hash(blob) == frag_hash:
+                    via_symbols = True
+                else:
+                    self.repair_fallbacks += 1
+                    _flight.note("repair", "fallback",
+                                 miner=self.account, row=row,
+                                 reason="broken-chain" if blob is None
+                                 else "bad-hash")
+                    blob = None
+            if blob is None:
+                blob = self._repair_via_fragments(seg, row, present,
+                                                  holders, cfg)
+        if fragment_hash(blob) != frag_hash:
+            return False
+        self.store[frag_hash] = blob
+        self.repair_recovered_bytes += len(blob)
+        if via_symbols:
+            self.repair_symbol_repairs += 1
+        else:
+            self.repair_whole_repairs += 1
+        for peer in peers:
+            if frag_hash in peer.tags:
+                self.tags[frag_hash] = peer.tags[frag_hash]
+                break
+        else:
+            for gw in (gateways or self.gateways):
+                if frag_hash in gw.tag_store:
+                    self.tags[frag_hash] = gw.tag_store[frag_hash]
+                    break
+        self.node.submit_extrinsic(self.account,
+                                   "file_bank.claim_restoral_order",
+                                   frag_hash)
+        self.node.submit_extrinsic(self.account,
+                                   "file_bank.restoral_order_complete",
+                                   frag_hash)
+        _flight.note("custody", "repair", miner=self.account,
+                     frag=frag_hash,
+                     mode="symbols" if via_symbols else "fragments",
+                     ingress=self.repair_ingress_bytes - ingress0)
+        return True
+
+
+class TeeAgent:
+    """Holds the PoDR2 secret; certifies fillers and verifies the queued
+    proofs on the key's device (or the engine's verify queue, whose audit
+    key must be this key). ``bls_seed``: the BLS master key every verdict
+    is sealed with, registered on chain with its proof of possession."""
+
+    def __init__(self, node, controller: str, key: podr2.Podr2Key,
+                 blocks_per_fragment: int, bls_seed: bytes | None = None,
+                 engine=None):
+        from ..crypto import bls12381
+
+        self.node = node
+        self.controller = controller
+        self.key = key
+        self.blocks = blocks_per_fragment
+        self.engine = engine
+        if engine is not None and engine.audit is not None \
+                and not podr2.keys_equal(engine.audit.key, key):
+            raise ValueError("engine AuditBackend key is not this "
+                             "TEE's PoDR2 key")
+        self.account_key = node.spec.account_key(controller)
+        self._submitted: set[tuple[str, int]] = set()
+        if bls_seed is not None:
+            self.bls_sk, self.bls_pk = bls12381.keygen(bls_seed)
+        else:
+            self.bls_sk, self.bls_pk = None, b""
+
+    @property
+    def device(self) -> torch.device:
+        return self.key.alpha.device
+
+    def bls_registration(self) -> tuple[bytes, bytes]:
+        """(bls_pk, proof-of-possession) for tee_worker.register."""
+        from ..crypto import bls12381
+
+        if self.bls_sk is None:
+            return b"", b""
+        return self.bls_pk, bls12381.prove_possession(self.bls_sk,
+                                                      self.bls_pk)
+
+    # -- filler certification -----------------------------------------------
+    def certify_fillers(self, miner: str, indices: list[int],
+                        blobs: list[bytes]):
+        """Check each blob is the canonical filler of (miner, index), tag
+        it, and sign the hash batch bound to the miner's on-chain cert
+        nonce (what ``file_bank.upload_filler`` verifies)."""
+        hashes, tags = certify_fillers(self.key, miner, indices, blobs,
+                                       self.blocks, device=self.device)
+        return hashes, tags, self._sign(miner, hashes)
+
+    def certify_pois_fillers(self, miner: str, secret: bytes,
+                             indices: list[int],
+                             work: int = SLOW_FILLER_WORK):
+        """The secret-seeded variant: the seed must match the miner's
+        on-chain commitment; the TEE derives, tags and signs the content.
+        Returns (hashes, tags, sig, blobs)."""
+        commitment = self.node.runtime.sminer.filler_seed_commitment_of(
+            miner)
+        if commitment is None \
+                or filler_seed_commitment(secret) != commitment:
+            raise ValueError("filler seed does not match the miner's "
+                             "on-chain commitment")
+        if len(set(indices)) != len(indices):
+            raise ValueError("duplicate filler indices")
+        expected_size = self.blocks * podr2.BLOCK_BYTES
+        blobs = [slow_filler_bytes(secret, i, expected_size, work)
+                 for i in indices]
+        hashes, tags = _tag_blobs(self.key, blobs, self.device)
+        return hashes, tags, self._sign(miner, hashes), blobs
+
+    def _sign(self, miner: str, hashes: list[bytes]) -> bytes:
+        from ..chain.file_bank import FileBank
+
+        nonce = self.node.runtime.file_bank.filler_cert_nonce(miner)
+        return self.account_key.sign(
+            FileBank.FILLER_CERT_CONTEXT
+            + codec.encode((miner, tuple(hashes), nonce)))
+
+    # -- proof verification -------------------------------------------------
+    def on_block(self, node) -> None:
+        from ..chain import audit as audit_mod
+        from ..crypto import bls12381
+
+        rt = node.runtime
+        missions = rt.state.get("audit", "unverify", self.controller,
+                                default=())
+        ch = rt.audit.challenge()
+        if not missions or ch is None:
+            return
+        seed = b"".join(ch.net.randoms)
+        idx, nu = HostPodr2(self.device).gen_challenge(seed, self.blocks)
+        for mission in missions:
+            if (mission.miner, ch.start) in self._submitted:
+                continue  # result already queued, not yet applied
+            snap = mission.snapshot   # owed sets frozen at round start
+            with trace.span("offchain.verify", sys="offchain",
+                            tee=self.controller, miner=mission.miner,
+                            round=ch.start) as vspan:
+                service_ok = self._verify(mission.service_proof,
+                                          list(snap.service_frags), seed,
+                                          idx, nu)
+                idle_ok = self._verify(mission.idle_proof,
+                                       list(snap.fillers), seed, idx, nu)
+                vspan.set(service_ok=service_ok, idle_ok=idle_ok)
+                self._submitted.add((mission.miner, ch.start))
+                bls_sig = b""
+                if self.bls_sk is not None:
+                    bls_sig = bls12381.sign(
+                        self.bls_sk, audit_mod.verdict_message(
+                            self.controller,
+                            audit_mod.mission_digest(mission),
+                            idle_ok, service_ok))
+                node.submit_extrinsic(self.controller,
+                                      "audit.submit_verify_result",
+                                      mission.miner, idle_ok, service_ok,
+                                      bls_sig)
+                _flight.note("custody", "verdict", miner=mission.miner,
+                             round=ch.start, service=service_ok,
+                             idle=idle_ok, frags=snap.service_frags)
+
+    def _verify(self, blob, owed: list[bytes], seed: bytes,
+                idx, nu) -> bool:
+        """Decode the untrusted proof bytes and check them against the
+        owed set; malformed bytes are a failed audit, never an
+        exception."""
+        try:
+            proof = codec.decode(blob)
+        except (codec.CodecError, TypeError, ValueError):
+            return False
+        if not isinstance(proof, Proof):
+            return False
+        # getattr: a partial TeeAgent (built with __new__) has no engine
+        return _verify(self.key, self.blocks, seed, owed, proof.mu,
+                       proof.sigma, idx, nu, getattr(self, "engine", None),
+                       self.controller, self.device)
+
+
+class ValidatorOcw:
+    """The audit offchain worker: proposes the challenge snapshot signed
+    with the validator's session key, and mines the unsigned election
+    solution in its window."""
+
+    def __init__(self, account: str, session_key):
+        self.account = account
+        self.session_key = session_key
+        self._proposed_at: int = -1
+        self._mined_era: int = -1
+
+    def on_block(self, node) -> None:
+        self._maybe_propose_challenge(node)
+        self._maybe_mine_election(node)
+
+    def _maybe_propose_challenge(self, node) -> None:
+        from ..chain.audit import SESSION_SIGNING_CONTEXT, Audit
+
+        rt = node.runtime
+        if self.account not in rt.audit.keys():
+            return
+        if rt.audit.challenge() is not None:
+            return
+        if rt.state.block == self._proposed_at:
+            return
+        net, miners = rt.audit.generation_challenge()
+        if not miners:
+            return
+        digest = Audit.snapshot_digest(net, miners)
+        sig = self.session_key.sign(SESSION_SIGNING_CONTEXT + digest)
+        node.submit_extrinsic(self.account, "audit.save_challenge_info",
+                              net, miners, sig)
+        self._proposed_at = rt.state.block
+
+    def _maybe_mine_election(self, node) -> None:
+        """Mine a solution over the stake-bounded snapshot admission
+        verifies against, and submit it feeless with the session
+        signature and its exact score."""
+        from ..chain.election import score_of
+        from ..chain.state import DispatchError
+        from .consensus import elect_validators
+
+        rt = node.runtime
+        el = rt.election
+        era = rt.state.block // el.era_blocks
+        if not el.in_unsigned_phase() or era == self._mined_era:
+            return
+        if self.account not in rt.staking.validators():
+            return
+        stakes = el._candidates()
+        credits = rt.credit.credits()
+        maxv = el.max_validators or rt.config.max_validators
+        solution = elect_validators(stakes, credits, maxv)
+        if not solution:
+            return
+        score = score_of(solution, stakes, credits)
+        queued = rt.state.get("election", "best_unsigned", default=None)
+        if queued is not None and queued[2] >= score:
+            self._mined_era = era       # someone already queued as good
+            return
+        sig = self.session_key.sign(
+            el.unsigned_payload(tuple(solution), score, self.account))
+        try:
+            node.submit_extrinsic(self.account,
+                                  "election.submit_unsigned",
+                                  tuple(solution), score, sig)
+        except DispatchError:
+            pass   # raced by a peer's equal solution: fine
+        self._mined_era = era

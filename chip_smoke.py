@@ -186,9 +186,46 @@ limit):
    calls (``apply_in_block``) and block hooks (``init_block``), the era
    block's ``init_block`` apart, the count of signed extrinsics, BLS
    sign and verify times and the final ``state_root``;
-13. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+13. node: the port's own storage network through its node
+   (``cess_tpu_torch.node``), no test helper on it, in the shape of the
+   reference's ``storage_net`` fixture (``tests/test_network.py``): 3
+   validator ``Node``s in one ``Network``, ``OssGateway``, 4
+   ``MinerAgent``s, a ``TeeAgent`` with its BLS key and 2
+   ``ValidatorOcw``s, RS(2,1) with 16 MiB segments and the chain's key,
+   the agents on an ``AgentPipeline`` on the card. Setup as the fixture
+   does it, reduced to 4 fillers of 8 MiB a miner certified on the card
+   (the fixture has 400; the other 396 fillers' idle space is granted on
+   every replica at genesis); a 512 MiB ``gw.upload`` (32 segments, 96
+   fragments), fetched and reported by the miners' ``on_block``, made
+   active by ``calculate_end`` through a block, every miner's bytes
+   hashing to the on-chain fragment hashes; one fragment of one miner
+   XORed with 0xA5, the validators' workers added, slots until every
+   miner's ``audit.VerifyResult``: honest true, the tampered service
+   proof false, ``RewardPaid``, the sealed verdicts re-verified on
+   ``nodes[1]``, the replicas' state roots equal; a lost fragment
+   repaired in "fragments" mode and another in "symbols" mode, each
+   hashing to its identity, ``RestoralComplete`` naming the rescuer.
+   Then the same network, upload and round on one port engine
+   (``make_engine(2, 1, podr2_key=key)``) under the gateway, miners and
+   TEE: every fragment hash, proof's wire bytes and verdict and the state
+   root at the round's last block equal to the direct run's; an
+   ``RpcServer`` on ``nodes[0]`` answers ``chain_getFinalizedHead``,
+   ``cess_engineStats`` (encode, tag, prove and verify batches) and GET
+   /metrics (``cess_engine_*``). Counters zeroed before the first run
+   and read after the second (``gf_apply``, ``podr2_tag`` and
+   ``prf_blocks`` must launch), then each kernel held against its plain
+   version at every shape the phase ran, the engine's from its program
+   cache. Last, ``python -m cess_tpu_torch.node.cli --dev --blocks 20
+   --block-time 0.1 --rpc-port P`` as a subprocess with ``--engine
+   cuda`` (``cess_engineStats`` polled while it runs names a codec on
+   the card) and with ``--engine cpu`` and no card visible, each exiting
+   0 after block #20. The line gives the upload's stages, slots to the
+   verdict, the round's host wall by agent (proofs, the TEE's checks,
+   pallet calls, block hooks), the repairs' ms by mode, the peak device
+   memory and the final state root;
+14. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-14. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+15. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -196,10 +233,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-15. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+16. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-16. kernel times beside the plain versions' times and each kernel's
+17. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -210,7 +247,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-17. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
+18. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
    ``build/native/``) on the timing phase's RS(4,8) input [32, 4, 4 MiB]:
    ``NativeCodec(4, 8)`` parity on 1 thread and on ``os.cpu_count()``
    threads and the decode of the data from four parity fragments,
@@ -218,7 +255,7 @@ limit):
    "cpu")`` on a slice; the native GiB/s, ``gf_apply``'s device GiB/s on
    the same bytes and their ratio, ``bench.py``'s CPU-speedup measure (a
    measurement, not a gate);
-18. with ``--parent DIR`` (another checkout of the repository, e.g. the
+19. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -235,9 +272,8 @@ The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
 ``launches_stream``, ``launches_chaos``, ``launches_agents``,
 ``launches_mesh``, ``launches_pool``, ``launches_slo``,
-``launches_remediate`` and ``launches_chain`` from phases 4 to 12); the
-last
-is ``{"ok": true, "device": {...}}``.
+``launches_remediate``, ``launches_chain`` and ``launches_node`` from
+phases 4 to 13); the last is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
 """
@@ -2996,6 +3032,518 @@ def chain_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
     return launches
 
 
+FIXTURE_FILLERS = 400    # fillers a miner in the reference's storage_net
+
+
+def storage_network(dev, cfg, key, data: bytes, fillers: int, engine=None,
+                    repair: bool = False, rpc: bool = False) -> dict:
+    """One run of phase ``node``'s storage network (``node_phase``): the
+    reference's ``storage_net`` shape on the port's node and agents,
+    ``engine`` (or None) under the gateway, miners and TEE. Returns what
+    the phase compares and reports; no object of the network is kept."""
+    import numpy as np
+    from cess_tpu_torch import constants
+    from cess_tpu_torch.chain.attestation import issue_cert, issue_report
+    from cess_tpu_torch.chain.audit import reverify_verdict
+    from cess_tpu_torch.crypto.rsa import generate_rsa_keypair
+    from cess_tpu_torch.node import offchain as oc
+    from cess_tpu_torch.node.chain_spec import ChainSpec, ValidatorGenesis
+    from cess_tpu_torch.node.hashing import fragment_hash
+    from cess_tpu_torch.node.network import Network, Node
+
+    d = constants.DOLLARS
+    names = ("m1", "m2", "m3", "m4")
+    spec = ChainSpec(
+        name="t", chain_id="test-net",
+        endowed=(("alice", 1_000_000_000 * d), ("gw", 1_000_000 * d),
+                 ("stash1", 10_000_000 * d), ("tee1", 1_000 * d),
+                 *((w, 10_000 * d) for w in names)),
+        validators=tuple(ValidatorGenesis(f"v{i}", 4_000_000 * d)
+                         for i in range(3)),
+        era_blocks=40, epoch_blocks=10,
+        audit_challenge_life=6, audit_verify_life=8, sudo="alice")
+    nodes = [Node(spec, f"node{i}", {f"v{i}": spec.session_key(f"v{i}")})
+             for i in range(3)]
+    net = Network(nodes)
+    node, rt = nodes[0], nodes[0].runtime
+    wall = dict.fromkeys(("proofs", "checks", "pallet_calls",
+                          "block_hooks"), 0.0)
+
+    def timed(obj, name, bucket):
+        fn = getattr(obj, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                wall[bucket] += time.perf_counter() - t0
+        setattr(obj, name, run)
+
+    for n in nodes:
+        timed(n.runtime, "apply_in_block", "pallet_calls")
+        timed(n.runtime, "init_block", "block_hooks")
+
+    # setup, as the reference's fixture does it
+    t_setup = time.perf_counter()
+    kp = generate_rsa_keypair(1024, seed=5)
+    signer_kp = generate_rsa_keypair(1024, seed=6)
+    mr = b"\x02" * 32
+    for n in nodes:
+        n.runtime.apply_extrinsic("root", "tee_worker.update_whitelist", mr)
+        n.runtime.apply_extrinsic("root", "tee_worker.pin_ias_signer",
+                                  kp.public)
+    cert = issue_cert(kp, "ias-signer", signer_kp.public)
+    tee = oc.TeeAgent(node, "tee1", key, cfg.blocks_per_fragment,
+                      bls_seed=b"net-tee-master", engine=engine)
+    bls_pk, pop = tee.bls_registration()
+    report, rsig = issue_report(signer_kp, mr, b"tee-pk", "tee1",
+                                bls_pk=bls_pk)
+    node.submit_extrinsic("tee1", "tee_worker.register", "stash1", b"tp",
+                          b"tee-pk", report, rsig, (cert,), bls_pk, pop)
+    for w in names:
+        node.submit_extrinsic(w, "sminer.regnstk", w, b"p" + w.encode(),
+                              2000 * d)
+    net.run_slots(2)
+    pipe = oc.AgentPipeline(cfg, podr2_key=key, device=dev, engine=engine)
+    gw = oc.OssGateway(node, "gw", pipe)
+    miners = [oc.MinerAgent(node, w, [gw], pipe, engine=engine)
+              for w in names]
+    t0 = time.perf_counter()
+    for m in miners:
+        m.setup_fillers(tee, fillers)
+    filler_s = time.perf_counter() - t0
+    # the cut: ``fillers`` certified fillers a miner, and on every replica
+    # a genesis grant of the idle space of the fixture's other fillers
+    for n in nodes:
+        for w in names:
+            n.runtime.sminer.add_miner_idle_space(
+                w, (FIXTURE_FILLERS - fillers) * constants.FRAGMENT_SIZE)
+    net.run_slots(2)
+    node.submit_extrinsic("alice", "storage_handler.buy_space", 10)
+    node.submit_extrinsic("alice", "oss.authorize", "gw")
+    net.run_slots(2)
+    node.submit_extrinsic("gw", "file_bank.create_bucket", "alice", "photos")
+    net.run_slots(2)
+    for n in nodes:
+        n.runtime.fund("sminer_reward_pool", 10_000 * d)
+    node.offchain_agents.extend([*miners, tee])
+    setup_s = time.perf_counter() - t_setup
+
+    # the upload: declared, fetched and reported, then made active
+    t0 = time.perf_counter()
+    fh = gw.upload("alice", "photos", "node-phase.bin", data)
+    upload_s = time.perf_counter() - t0
+    up = gw.last_upload
+    t0 = time.perf_counter()
+    net.run_slots(1)
+    check(rt.file_bank.deal(fh) is not None, "node: no deal after the upload")
+    net.run_slots(2)
+    f = rt.file_bank.file(fh)
+    check(f is not None and f.state == "calculate",
+          f"node: the file is not in 'calculate' after the transfers "
+          f"({None if f is None else f.state})")
+    node.submit_extrinsic("root", "file_bank.calculate_end", fh)
+    net.run_slots(1)
+    transfer_s = time.perf_counter() - t0
+    f = rt.file_bank.file(fh)
+    check(f.state == "active", f"node: the file is {f.state}, not active")
+    by_name = {m.account: m for m in miners}
+    check(all(fragment_hash(by_name[f.miners[row]].store[h]) == h
+              for seg in f.segments
+              for row, h in enumerate(seg.fragment_hashes)),
+          "node: a miner's stored bytes do not hash to the on-chain "
+          "fragment hashes")
+
+    # the audit round, one fragment of one miner XORed with 0xA5 first
+    victim = by_name[f.miners[0]]
+    bad = f.segments[-1].fragment_hashes[0]
+    victim.store[bad] = np.bitwise_xor(
+        np.frombuffer(victim.store[bad], np.uint8), 0xA5).tobytes()
+    for m in miners:
+        timed(m, "_submit_proof", "proofs")
+    timed(tee, "on_block", "checks")
+    for k in wall:
+        wall[k] = 0.0
+    node.offchain_agents.extend([
+        oc.ValidatorOcw("v0", spec.session_key("v0")),
+        oc.ValidatorOcw("v1", spec.session_key("v1"))])
+    challenged, seed, snaps, results, slots = None, None, {}, {}, 0
+    t0 = time.perf_counter()
+    while slots < 40:
+        net.run_slots(1)
+        slots += 1
+        ch = rt.audit.challenge()
+        if challenged is None and ch is not None:
+            challenged = sorted(s.miner for s in ch.miners)
+            seed = b"".join(ch.net.randoms)
+            snaps = {s.miner: s for s in ch.miners}
+        results = {dict(e.data)["miner"]: dict(e.data)
+                   for e in rt.state.events_of("audit", "VerifyResult")}
+        if challenged and sorted(results) == challenged:
+            break
+    round_s = time.perf_counter() - t0
+    round_wall = dict(wall)
+    check(challenged == sorted(names) and sorted(results) == challenged,
+          f"node: the round did not verify every miner in {slots} slots "
+          f"(challenged {challenged}, verified {sorted(results)})")
+    verdicts = {w: (r["idle"], r["service"]) for w, r in results.items()}
+    want = {w: (True, w != victim.account) for w in names}
+    check(verdicts == want, f"node: verdicts {verdicts} != {want}")
+    check(bool(rt.state.events_of("sminer", "RewardPaid")),
+          "node: no reward was paid for the round")
+    other = nodes[1].runtime
+    recs = other.audit.verdicts()
+    pk = other.tee_worker.worker("tee1").bls_pk
+    check(len(recs) == len(names) and all(reverify_verdict(r, pk)
+                                          for r in recs),
+          "node: a sealed verdict does not re-verify on nodes[1]")
+    check(len({n.runtime.state.state_root() for n in nodes}) == 1,
+          "node: the replicas' state roots differ after the round")
+    xts = [xt for h in node.chain[1:]
+           for xt in node.bodies[h.hash()].extrinsics]
+    proofs = {xt.signer: tuple(xt.args) for xt in xts
+              if xt.call == "audit.submit_proof"}
+    check(sorted(proofs) == sorted(names) and all(
+        len(b) == oc.proof_wire_bytes() <= constants.SIGMA_MAX
+        for pair in proofs.values() for b in pair),
+        "node: a miner's proofs are missing or not of the wire size")
+    out = {"fragment_hashes": up.fragment_hashes, "file_hash": fh,
+           "proofs": proofs, "verdicts": verdicts, "slots": slots,
+           "round_root": rt.state.state_root(), "round_block": rt.state.block,
+           "round_s": round_s, "round_wall": round_wall,
+           "setup_s": setup_s, "filler_s": filler_s, "upload_s": upload_s,
+           "transfer_s": transfer_s, "upload_stages": dict(up.seconds),
+           "seed": seed, "victim": victim.account, "snaps": snaps,
+           "signed": len(xts)}
+
+    if repair:
+        out["repairs"] = []
+        for row, mode in ((0, "fragments"), (1, "symbols")):
+            frag = f.segments[0].fragment_hashes[row]
+            lost = next(m for m in miners if frag in m.store)
+            del lost.store[frag]
+            lost.tags.pop(frag, None)
+            node.submit_extrinsic(lost.account,
+                                  "file_bank.generate_restoral_order", fh,
+                                  frag)
+            net.run_slots(1)
+            check(rt.file_bank.restoral_order(frag) is not None,
+                  f"node: no restoral order for row {row}")
+            rescuer = next(m for m in miners if m.account not in f.miners) \
+                if mode == "fragments" else lost
+            rescuer.set_repair_mode(mode)
+            before = (rescuer.repair_symbol_repairs,
+                      rescuer.repair_whole_repairs)
+            t0 = time.perf_counter()
+            ok = rescuer.try_repair(frag, miners, [gw])
+            ms = (time.perf_counter() - t0) * 1e3
+            rescuer.set_repair_mode("fragments")
+            after = (rescuer.repair_symbol_repairs,
+                     rescuer.repair_whole_repairs)
+            check(ok and fragment_hash(rescuer.store[frag]) == frag,
+                  f"node: the {mode} repair of row {row} failed or does not "
+                  f"hash to its identity")
+            which = int(mode == "fragments")
+            check(after[which] - before[which] == 1
+                  and rescuer.repair_fallbacks == 0,
+                  f"node: the {mode} repair took another path")
+            net.run_slots(1)
+            ev = rt.state.events_of("file_bank", "RestoralComplete")
+            check(rt.file_bank.restoral_order(frag) is None and bool(ev)
+                  and dict(ev[-1].data)["miner"] == rescuer.account,
+                  f"node: RestoralComplete does not name the rescuer of row "
+                  f"{row}")
+            present = tuple(j for j in range(cfg.k + cfg.m) if j != row)
+            out["repairs"].append((mode, row, present[:cfg.k], ms))
+        check(len({n.runtime.state.state_root() for n in nodes}) == 1,
+              "node: the replicas' state roots differ after the repairs")
+        out["upload"] = up
+
+    if rpc:
+        import urllib.request
+
+        from cess_tpu_torch.node.rpc import RpcServer
+
+        node.engine = engine
+        srv = RpcServer(node, port=0).start()
+        try:
+            def call(method, *params):
+                req = json.dumps({"jsonrpc": "2.0", "id": 1,
+                                  "method": method,
+                                  "params": list(params)}).encode()
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{srv.port}", data=req,
+                        headers={"Content-Type": "application/json"})) as r:
+                    body = json.loads(r.read())
+                check("error" not in body, f"node: RPC {method}: {body}")
+                return body["result"]
+
+            fin = call("chain_getFinalizedHead")
+            check(fin == node.finalized > 0,
+                  f"node: chain_getFinalizedHead {fin} != {node.finalized}")
+            stats = call("cess_engineStats")
+            batches = {c: stats["classes"][c]["batches"]
+                       for c in ("encode", "tag", "prove", "verify")}
+            check(all(b > 0 for b in batches.values()),
+                  f"node: an engine class ran no batch: {batches}")
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics") as r:
+                scrape = r.read().decode()
+            families = sorted({ln.split()[2] for ln in scrape.splitlines()
+                               if ln.startswith("# TYPE cess_engine_")})
+            check(len(families) > 0, "node: GET /metrics has no "
+                  "cess_engine_* family")
+            out["rpc"] = {"finalized": fin, "batches": batches,
+                          "codec": stats.get("codec"),
+                          "families": len(families)}
+        finally:
+            srv.stop()
+    return out
+
+
+def node_cli(engine: str, rpc_port: int) -> dict:
+    """``python -m cess_tpu_torch.node.cli --dev --blocks 20 --block-time
+    0.1 --engine ENGINE --rpc-port P`` from the checkout; its
+    ``cess_engineStats`` is polled once while it runs. "cpu" runs with no
+    card visible (``CUDA_VISIBLE_DEVICES=""``), so nothing on its path can
+    need one."""
+    import os
+    import urllib.request
+
+    env = dict(os.environ)
+    if engine == "cpu":
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    req = json.dumps({"jsonrpc": "2.0", "id": 1, "method": "cess_engineStats",
+                      "params": []}).encode()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cess_tpu_torch.node.cli", "--dev",
+         "--blocks", "20", "--block-time", "0.1", "--engine", engine,
+         "--rpc-port", str(rpc_port)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    stats = None
+    try:
+        while stats is None and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{rpc_port}", data=req,
+                        headers={"Content-Type": "application/json"}),
+                        timeout=5) as r:
+                    stats = json.loads(r.read())["result"]
+            except OSError:
+                time.sleep(0.05)
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"rc": proc.returncode, "stats": stats, "err": err,
+            "done": "#20 " in err, "wall": time.perf_counter() - t0}
+
+
+def node_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
+               nseg: int = 32, fillers: int = 4) -> dict:
+    """The port's own storage network at the main path's width, with no
+    test helper on it: the shape of the reference's ``storage_net``
+    fixture (3 validator ``Node``s in one ``Network``; ``OssGateway`` gw,
+    ``MinerAgent``s m1 to m4, ``TeeAgent`` tee1 with its BLS seed, two
+    ``ValidatorOcw``s; its endowments, era, epoch and audit lives),
+    RS(2,1) with 16 MiB segments and the key ``Podr2Key.generate(7)``,
+    the agents on an ``AgentPipeline`` on the card. Setup as the fixture
+    does it (TEE whitelist and registration with an RSA attestation and a
+    BLS key, ``sminer.regnstk``, fillers certified on the card,
+    ``buy_space``, ``oss.authorize``, ``create_bucket``, the reward pool
+    funded), cut to ``fillers`` fillers of 8 MiB a miner (the fixture has
+    400) and, on every replica, a genesis grant of the other 396 fillers'
+    idle space (``buy_space`` and the deal need it); then ``gw.upload`` of
+    ``nseg`` segments, the miners' fetches and reports, ``calculate_end``
+    through a block; one stored fragment of a miner XORed with 0xA5; the
+    validators' workers added, slots until every miner's
+    ``audit.VerifyResult`` (honest true, the tampered service proof
+    false, ``RewardPaid``, the verdicts re-verified on ``nodes[1]``, the
+    replicas' state roots equal); a lost fragment repaired by
+    "fragments", another by "symbols", each hashing to its identity and
+    ``RestoralComplete`` naming the rescuer. Then the same network,
+    upload and round with the gateway, miners and TEE on one port engine:
+    every fragment hash, proof's wire bytes and verdict and the state root
+    at the round's last block equal to the direct run's, and an
+    ``RpcServer`` on ``nodes[0]`` answering ``chain_getFinalizedHead``,
+    ``cess_engineStats`` and GET /metrics. Counters are zeroed before the
+    first run and read after the second; then each kernel is held against
+    its plain version at every shape the phase ran, the engine's from its
+    program cache. Last, the CLI as a subprocess with ``--engine cuda``
+    (its stats name a codec on the card) and ``--engine cpu`` (no card
+    visible), each exiting 0 after block #20. A smaller ``cfg`` and
+    ``nseg`` rehearse the phase on the CPU (where the "cuda" CLI run must
+    fail). Returns the launches of the phase."""
+    import numpy as np
+    import torch
+    from cess_tpu_torch.models.pipeline import PipelineConfig
+    from cess_tpu_torch.node import offchain as oc
+    from cess_tpu_torch.node.hashing import filler_bytes
+    from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, regen
+    from cess_tpu_torch.ops import rs_kernel
+    from cess_tpu_torch.serve import make_engine
+
+    cfg = cfg or PipelineConfig()
+    cuda = dev.type == "cuda"
+    n, rows, blocks = cfg.fragment_size, cfg.k + cfg.m, cfg.blocks_per_fragment
+    key = podr2.Podr2Key.generate(7, device=dev)
+    data = rand_bytes((nseg * cfg.segment_size,), 93, dev).cpu().numpy(
+        ).tobytes()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_phase = time.perf_counter()
+    direct = storage_network(dev, cfg, key, data, fillers, repair=True)
+    up = direct.pop("upload")
+    backends = {} if cuda else {"rs_backend": "cpu", "audit_backend": "cpu"}
+    eng = make_engine(cfg.k, cfg.m, podr2_key=key, **backends)
+    try:
+        via = storage_network(dev, cfg, key, data, fillers, engine=eng,
+                              rpc=True)
+        progs = list(eng.programs.keys())
+    finally:
+        eng.close()
+    if cuda:
+        torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    check(all(launches[k] > 0 for k in ("gf_apply", "prf_blocks",
+                                        "podr2_tag")),
+          f"node: a kernel was not launched by the node: {launches}")
+    for what in ("fragment_hashes", "file_hash", "proofs", "verdicts",
+                 "round_root", "round_block", "slots"):
+        check(via[what] == direct[what], f"node: the engine run's {what} "
+              f"differs from the direct run's")
+
+    # each kernel at every shape the phase ran, against its plain version
+    def held(name, got, plain):
+        e = max_err(got, plain)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"node: {name} at {tuple(got.shape)} differs from "
+              f"its plain version")
+
+    shapes = []
+    seg_t = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(
+        dev).view(nseg, cfg.k, n)
+
+    def gf_at(mat, x, what):
+        tab = rs_kernel.tables(np.asarray(mat, np.uint8), dev)
+        held("gf_apply", rs_kernel.gf_apply(tab, x),
+             rs_kernel.gf_apply_plain(tab, x))
+        shapes.append(f"gf_apply {what} {tuple(x.shape)}")
+
+    gf_at(gf.cauchy_parity_matrix(cfg.k, cfg.m), seg_t, "encode")
+    frags_t = torch.from_numpy(np.array(up.fragments)).to(dev)
+    for mode, row, present, _ in direct["repairs"]:
+        surv = frags_t[:1, list(present)]
+        if mode == "fragments":
+            gf_at(gf.repair_matrix(cfg.k, cfg.m, present, (row,)), surv,
+                  f"repair {present}->{row}")
+            continue
+        for p, c in enumerate(regen.repair_coeffs(cfg.k, cfg.m, present,
+                                                  (row,))):
+            pair = torch.stack([frags_t[0, present[0]],
+                                frags_t[0, present[p]]])[None]
+            gf_at(np.array([[1, c]]), pair, f"fold {c}")
+    ids_t = torch.from_numpy(up.ids.reshape(-1, 2).astype(np.int64)).to(dev)
+    snap = direct["snaps"][direct["victim"]]
+    fill_ids = torch.from_numpy(np.stack([
+        podr2.fragment_id_from_hash(h) for h in snap.fillers]).astype(
+            np.int64)).to(dev)
+    fill_t = torch.from_numpy(np.stack([np.frombuffer(filler_bytes(
+        direct["victim"], i, n), np.uint8) for i in range(fillers)])).to(dev)
+    every = torch.arange(blocks, device=dev)
+    for ids, fr in ((ids_t, frags_t.view(-1, n)), (fill_ids, fill_t)):
+        prf_lm = podr2_kernel.prf_blocks(key.prf_key, ids, None, blocks,
+                                         key.limbs, limb_major=True)
+        held("prf_blocks", prf_lm, prf.prf_plain(key.prf_key, ids, every,
+                                                 key.limbs).transpose(1, 2))
+        fb = fr.reshape(-1, blocks, podr2.BLOCK_BYTES)
+        held("podr2_tag", podr2_kernel.podr2_tag(key.weights, prf_lm, fb),
+             podr2_kernel.podr2_tag_plain(key.weights, prf_lm, fb))
+        shapes.append(f"prf_blocks (limb-major) and podr2_tag "
+                      f"{ids.shape[0]} x {blocks}")
+        del prf_lm, fb
+    idx = podr2.gen_challenge(direct["seed"], blocks, device=dev)[0]
+    owed_ids = torch.from_numpy(np.stack([
+        podr2.fragment_id_from_hash(h) for h in snap.service_frags]).astype(
+            np.int64)).to(dev)
+    for ids in (owed_ids, fill_ids):
+        held("prf_blocks", podr2_kernel.prf_blocks(
+            key.prf_key, ids, idx, idx.numel(), key.limbs),
+            prf.prf_plain(key.prf_key, ids, idx, key.limbs))
+        shapes.append(f"prf_blocks {ids.shape[0]} x {idx.numel()}")
+    del fill_t
+    engine_shapes = serve_kernel_checks(
+        progs, oc.AgentPipeline(cfg, podr2_key=key, device=dev).pipeline,
+        dev, [seg_t], [frags_t], [owed_ids, fill_ids], idx,
+        0, errs, "node")
+    del seg_t, frags_t
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the CLI as a subprocess
+    cli = {}
+    for engine in ("cuda", "cpu"):
+        r = node_cli(engine, _free_port())
+        if engine == "cuda" and not cuda:
+            check(r["rc"] != 0, "node: the CLI's --engine cuda ran without "
+                  "a card")
+            continue
+        check(r["rc"] == 0 and r["done"],
+              f"node: the CLI with --engine {engine} exited {r['rc']} "
+              f"before #20: {r['err'][-2000:]}")
+        got = ((r["stats"] or {}).get("codec") or {}).get("device", "")
+        check(got.startswith(engine),
+              f"node: the CLI's cess_engineStats names codec device "
+              f"{got!r}, not {engine}")
+        cli[engine] = (r["wall"], got)
+
+    split = ", ".join(f"{k} {v * 1e3:.3f} ms"
+                      for k, v in direct["upload_stages"].items())
+
+    def walls(w):
+        return ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in w.items())
+
+    reps = ", ".join(f"{mode} (row {row} from {present}) {ms:.3f} ms"
+                     for mode, row, present, ms in direct["repairs"])
+    clis = ", ".join(f"--engine {e} {w:.3f} s (codec on {c})"
+                     for e, (w, c) in cli.items())
+    print(f"phase node: 3 validator nodes, gateway, 4 miners, TEE, 2 OCWs; "
+          f"RS(2,1) upload of {nseg} x {cfg.segment_size // MIB} MiB "
+          f"segments ({nseg * rows} fragments of {n // MIB} MiB) "
+          f"{direct['upload_s'] * 1e3:.3f} ms ({split}), fetched, reported "
+          f"and made active over 4 slots {direct['transfer_s'] * 1e3:.3f} "
+          f"ms; setup {direct['setup_s'] * 1e3:.3f} ms ({fillers} fillers a "
+          f"miner certified on the device {direct['filler_s'] * 1e3:.3f} "
+          f"ms); the round: {direct['slots']} slots to the verdict, "
+          f"{direct['round_s'] * 1e3:.3f} ms, host wall by agent: "
+          f"{walls(direct['round_wall'])}; verdicts "
+          f"{sorted(direct['verdicts'].items())} (tampered "
+          f"{direct['victim']}), re-verified on nodes[1], replicas' roots "
+          f"equal; repairs {reps}; through the engine: round "
+          f"{via['round_s'] * 1e3:.3f} ms ({walls(via['round_wall'])}), "
+          f"fragment hashes, {len(via['proofs']) * 2} proofs' wire bytes, "
+          f"verdicts and the round's state root equal to the direct run's; "
+          f"RPC finalized #{via['rpc']['finalized']}, engine batches "
+          f"{via['rpc']['batches']}, codec {via['rpc']['codec']}, "
+          f"{via['rpc']['families']} cess_engine_* families; CLI {clis}, "
+          f"exit 0 after #20; {direct['signed']} extrinsics in the direct "
+          f"chain; peak {peak / MIB:.1f} MiB; phase wall "
+          f"{phase_s * 1e3:.3f} ms; state_root "
+          f"{direct['round_root'].hex()} at block {direct['round_block']}; "
+          f"kernels byte-exact against their plain versions at the phase's "
+          f"shapes: {', '.join(shapes)}; at the engine's: {engine_shapes}; "
+          f"launches {launches} {tag}")
+    return launches
+
+
 def native_phase(dev, data, tab, tag: str) -> str:
     """The C++ host codec (``ops/rs_native.py``) beside the card: RS(4,8)
     parity of ``data`` [B, 4, n] (on the card) on 1 thread and on
@@ -3406,7 +3954,11 @@ def main(argv: list[str]) -> int:
     launches_chain = chain_phase(dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 13. BASELINE geometry RS(4,8) ---------------------------------------
+    # 13. node: the port's storage network through its own node ----------
+    launches_node = node_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 14. BASELINE geometry RS(4,8) ---------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -3439,7 +3991,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 14. the xor path: RS(4,8) under strategy "xor", audited and repaired -
+    # 15. the xor path: RS(4,8) under strategy "xor", audited and repaired -
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -3516,7 +4068,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 15. known answer ------------------------------------------------------
+    # 16. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -3525,7 +4077,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 16. kernel times at the main paths' shapes --------------------------
+    # 17. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -3636,6 +4188,7 @@ def main(argv: list[str]) -> int:
             "launches_slo": launches_slo.get(name, 0),
             "launches_remediate": launches_remediate.get(name, 0),
             "launches_chain": launches_chain.get(name, 0),
+            "launches_node": launches_node.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -3670,7 +4223,7 @@ def main(argv: list[str]) -> int:
           f"{2 * flat_in.numel() / copy_ms / 1e9:.3f} TB/s read + written; "
           f"fill {flat_out.numel() / MIB:.0f} MiB {fill_ms:.4f} ms = "
           f"{flat_out.numel() / fill_ms / 1e9:.3f} TB/s (device times) {tag}")
-    # 17. native: the C++ host codec beside the card on the same bytes --
+    # 18. native: the C++ host codec beside the card on the same bytes --
     native_phase(dev, datax, tab48, tag)
     if args.parent:
         parent_turns(args.parent, [

@@ -205,6 +205,22 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "assert callable(System.apply_runtime_upgrade)\n"
             "from cess_tpu_torch.node.offchain import (Proof, build_proof,\n"
             "                                         proof_wire_bytes)\n"
+            "from cess_tpu_torch.node.offchain import (OssGateway,\n"
+            "    MinerAgent, TeeAgent, ValidatorOcw, filler_seed_commitment,\n"
+            "    slow_filler_bytes, SLOW_FILLER_WORK)\n"
+            "import cess_tpu_torch.node.chain_spec, cess_tpu_torch.node.mmr\n"
+            "import cess_tpu_torch.node.finality, cess_tpu_torch.node.store\n"
+            "import cess_tpu_torch.node.metrics, cess_tpu_torch.node.rpc\n"
+            "import cess_tpu_torch.node.ws, cess_tpu_torch.node.dht\n"
+            "import cess_tpu_torch.node.net, cess_tpu_torch.node.cli\n"
+            "from cess_tpu_torch.node.chain_spec import dev_spec\n"
+            "from cess_tpu_torch.node.network import Network, Node\n"
+            "spec = dev_spec()\n"
+            "node = Node(spec, 'n0', {'alice': spec.session_key('alice')})\n"
+            "Network([node]).run_slots(3)\n"
+            "assert node.head().number == 3\n"
+            "assert cess_tpu_torch.node.cli.main(['build-spec', '--chain',\n"
+            "                                     'dev']) == 0\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"
@@ -213,6 +229,37 @@ def test_port_imports_no_jax_and_no_cess_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_host_layers_import_without_torch():
+    """The host layers (``chain``, ``crypto``, ``codec`` and the node but
+    its agents) load no torch: a node process of the port imports
+    ``node.net`` and ``node.cli``, runs slots and ``build-spec`` and never
+    pays torch's import. Prints the import's wall time."""
+    code = ("import sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "import cess_tpu_torch.node.net, cess_tpu_torch.node.cli\n"
+            "import cess_tpu_torch.chain.runtime, cess_tpu_torch.codec\n"
+            "import cess_tpu_torch.crypto.bls12381\n"
+            "import cess_tpu_torch.node.rpc, cess_tpu_torch.node.metrics\n"
+            "import cess_tpu_torch.node.ws, cess_tpu_torch.node.store\n"
+            "import cess_tpu_torch.obs.chainwatch, cess_tpu_torch.resilience\n"
+            "took = time.perf_counter() - t0\n"
+            "from cess_tpu_torch.node.chain_spec import dev_spec\n"
+            "from cess_tpu_torch.node.network import Network, Node\n"
+            "spec = dev_spec()\n"
+            "node = Node(spec, 'n0', {'alice': spec.session_key('alice')})\n"
+            "Network([node]).run_slots(2)\n"
+            "assert cess_tpu_torch.node.cli.main(['build-spec', '--chain',\n"
+            "                                     'dev']) == 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('torch', 'jax', 'cess_tpu'))\n"
+            "print(f'import {took:.3f} s; loaded {bad}', file=sys.stderr)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    print(proc.stderr.strip().splitlines()[-1])
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -272,7 +272,8 @@ def run_on_both(module: str, name: str, monkeypatch, tmp_path, *,
     return session
 
 
-# the reference's node layer, which the port does not have yet
+# the reference's node layer: its tests run on the port's node in
+# tests/test_torch_node.py (torch_node_port), not on twins of runtimes
 _NODE_LAYER = re.compile(
     r"\bcess_tpu\.node\.(network|rpc|chain_spec|metrics|net|ws|cli)\b")
 
