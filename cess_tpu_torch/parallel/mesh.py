@@ -57,6 +57,17 @@ def cuda_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def resolve_devices(devices=None) -> list[torch.device]:
+    """``devices`` as a list of ``torch.device`` (None: ``cuda_devices()``);
+    ValueError when it is empty."""
+    if devices is None:
+        devices = cuda_devices()
+    devices = [resolve_device(d) for d in devices]
+    if not devices:
+        raise ValueError("at least one device is needed")
+    return devices
+
+
 class Mesh:
     """A ``(seg, byte)`` grid of devices.
 

@@ -863,8 +863,9 @@ class SubmissionEngine:
         if tracer is not None:
             # finished when the request resolves, fails, expires or is
             # refused, on whichever thread that happens
-            req.span = tracer.start(f"engine.{cls}", sys="engine", cls=cls,
-                                    rows=rows, op=key[0])
+            req.span = tracer.start(  # cesslint: disable=span-balance — finished at resolve/reject/expire/close (cross-thread span)
+                f"engine.{cls}", sys="engine", cls=cls, rows=rows,
+                op=key[0])
             if tenant is not None:
                 req.span.set(tenant=tenant)
         saturated = False
@@ -1164,7 +1165,7 @@ class SubmissionEngine:
         tracer = self._tracer_now()
         bspan = trace.NOOP_SPAN
         if tracer is not None:
-            bspan = tracer.start(
+            bspan = tracer.start(  # cesslint: disable=span-balance — finished on both the success and error paths below
                 "engine.batch", sys="engine", parent=batch[0].span, op=op,
                 cls=cls, members=len(batch), rows=sum(r.rows for r in batch),
                 degraded=degraded, backend=backend)

@@ -56,7 +56,6 @@ from typing import Any
 
 import torch
 
-from .._device import resolve_device
 from ..obs import flight as _flight
 
 PLACEMENT_LOG = 4096     # bounded placement-log window (replay witness)
@@ -118,15 +117,11 @@ class DevicePool:
 
     def __init__(self, devices=None, n: int | None = None,
                  probe_every: int = 8):
-        if devices is None:
-            from ..parallel.mesh import cuda_devices
+        from ..parallel.mesh import resolve_devices
 
-            devices = cuda_devices()
-        devices = [resolve_device(d) for d in devices]
+        devices = resolve_devices(devices)
         if n:
             devices = devices[:n]
-        if not devices:
-            raise ValueError("DevicePool needs at least one device")
         if probe_every < 1:
             raise ValueError("probe_every must be >= 1")
         self.lanes = [DeviceLane(i, d) for i, d in enumerate(devices)]

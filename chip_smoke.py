@@ -223,9 +223,27 @@ limit):
    verdict, the round's host wall by agent (proofs, the TEE's checks,
    pallet calls, block hooks), the repairs' ms by mode, the peak device
    memory and the final state root;
-14. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+14. sim: the port's simulated network (``cess_tpu_torch.sim``) on the
+   card: ``run_scenario`` of the library's ``adversarial_audit`` at its
+   100-node tier-1 scale (5 validators, 4 miners, m1 and m2 storing
+   corrupted bytes, 30 rounds, its per-round and final invariants) with
+   ``devices=[card]``, cut from the library's test sizes to RS(2,1)
+   segments of 16 MiB (fragments and fillers of 8 MiB), a 512 MiB upload
+   (32 segments, 96 fragments) and 32 fillers a miner (not 40: 4 x 32 x 8
+   MiB is the 1 GiB its ``buy_space`` needs); counters zeroed just
+   before and read just after (``gf_apply``, ``podr2_tag`` and
+   ``prf_blocks`` launch, ``gf_xor`` does not); each assigned
+   adversarial miner's service verdict false and every other true; each
+   kernel then held against its plain version at the phase's shapes.
+   Then ``adversarial_audit``, ``repair_storm`` (its 3-lane pool on the
+   card listed 3 times) and ``miner_attrition`` at 20 nodes on the card
+   and on 8 host devices: equal witnesses and pool counts. The line
+   gives rounds, slots to the verdict, the upload's, the filler
+   streams', the rounds' and the phase's walls and the peak device
+   memory;
+15. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-15. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+16. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -233,10 +251,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-16. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+17. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-17. kernel times beside the plain versions' times and each kernel's
+18. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -247,7 +265,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-18. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
+19. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
    ``build/native/``) on the timing phase's RS(4,8) input [32, 4, 4 MiB]:
    ``NativeCodec(4, 8)`` parity on 1 thread and on ``os.cpu_count()``
    threads and the decode of the data from four parity fragments,
@@ -255,7 +273,7 @@ limit):
    "cpu")`` on a slice; the native GiB/s, ``gf_apply``'s device GiB/s on
    the same bytes and their ratio, ``bench.py``'s CPU-speedup measure (a
    measurement, not a gate);
-19. with ``--parent DIR`` (another checkout of the repository, e.g. the
+20. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -272,8 +290,8 @@ The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
 ``launches_stream``, ``launches_chaos``, ``launches_agents``,
 ``launches_mesh``, ``launches_pool``, ``launches_slo``,
-``launches_remediate``, ``launches_chain`` and ``launches_node`` from
-phases 4 to 13); the last is ``{"ok": true, "device": {...}}``.
+``launches_remediate``, ``launches_chain``, ``launches_node`` and
+``launches_sim`` from phases 4 to 14); the last is ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
 """
@@ -3544,6 +3562,266 @@ def node_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
     return launches
 
 
+class _Clocked:
+    """Host walls of every call of ``cls.name`` while armed (a context
+    manager that patches the class and restores it)."""
+
+    def __init__(self, cls, name: str):
+        self.cls, self.name, self.walls = cls, name, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.cls, self.name)
+        walls = self.walls
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                walls.append(time.perf_counter() - t0)
+        setattr(self.cls, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.fn)
+
+
+def _pool_counts(snap):
+    """A pool snapshot without its lanes' device type (the counts a run
+    on other devices must reproduce)."""
+    if snap is None:
+        return None
+    return {**snap, "lanes": [{k: v for k, v in lane.items()
+                               if k != "platform"} for lane in snap["lanes"]]}
+
+
+def sim_phase(dev, zero_counts, counts, errs: dict, tag: str,
+              segment_size: int | None = None) -> dict:
+    """The port's simulated network (``cess_tpu_torch.sim``) on the card.
+
+    (a) Full width: ``run_scenario`` of the library's ``adversarial_audit``
+    (``dataclasses.replace``: 100 nodes, 5 validators, 4 miners of which
+    m1 and m2 store their fragments XORed with 0xA5, 30 rounds,
+    ``finalized-prefix`` and ``vote-locks`` every round and
+    ``audit-soundness`` at the end, all as the library has them) with
+    ``devices=[card]`` and these cuts of the library's test sizes: RS(2,1)
+    segments of ``constants.SEGMENT_SIZE`` (16 MiB, fragments and fillers
+    of the protocol's 8 MiB) instead of 16 KiB; the round-1 upload 32
+    segments (512 MiB, 96 fragments) instead of 20 000 bytes; and 32
+    fillers a miner instead of 40 (4 x 32 x 8 MiB is the 1 GiB the
+    scenario's ``buy_space`` needs). Counters are zeroed just before the
+    run and read just after: ``gf_apply``, ``podr2_tag`` and
+    ``prf_blocks`` must launch, ``gf_xor`` must not. The file's deal
+    takes 3 of the 4 miners: each assigned adversarial miner's latest
+    service verdict must be false, every other miner's (honest, or
+    owing no service fragment) true, every idle verdict true. Each launched kernel is then held against its plain
+    version at the phase's shapes: the upload's encode, the tags of its
+    96 fragments and of one miner's fillers, and the PRF at a challenge's
+    blocks for a miner's owed fragments and fillers.
+    (b) The kernels against their plain versions at system level:
+    ``adversarial_audit``, ``repair_storm`` (its 3-lane pool on the card
+    listed 3 times) and ``miner_attrition`` at the library's test width
+    (20 nodes, the scenarios' own sizes), on the card and on 8 host
+    devices: each pair's ``SimReport.witness()`` equal and its pool's
+    counts equal.
+    A smaller ``segment_size`` rehearses the phase on the CPU. Returns
+    the launches of (a)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from cess_tpu_torch import constants
+    from cess_tpu_torch.node import offchain as oc
+    from cess_tpu_torch.ops import gf, podr2, podr2_kernel, prf, rs_kernel
+    from cess_tpu_torch.sim import SCENARIOS, World, run_scenario
+    from cess_tpu_torch.sim import scenarios as sim_scenarios
+
+    n_nodes, nseg, fillers = 100, 32, 32
+    cuda = dev.type == "cuda"
+    seg = segment_size or constants.SEGMENT_SIZE
+    base = SCENARIOS["adversarial_audit"]
+    check(base.world == (("n_validators", 5), ("storage", (
+        ("n_miners", 4), ("adversarial_miners", (1, 2))))) and
+        base.timeline == ((1, "upload", 0, "alice", 20_000),),
+        "sim: the library's adversarial_audit changed; revisit the cuts")
+    storage = (("n_miners", 4), ("adversarial_miners", (1, 2)),
+               ("segment_size", seg), ("fillers_per_miner", fillers))
+    sc = dataclasses.replace(
+        base, world=(("n_validators", 5), ("storage", storage)),
+        timeline=((1, "upload", 0, "alice", nseg * seg),))
+
+    # (a) full width ---------------------------------------------------------
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t_phase = time.perf_counter()
+    with _Clocked(sim_scenarios, "_build_world") as build_c, \
+            _Clocked(oc.MinerAgent, "setup_fillers") as fill_c, \
+            _Clocked(sim_scenarios, "_seeded_blob") as blob_c, \
+            _Clocked(oc.OssGateway, "upload") as up_c, \
+            _Clocked(World, "run_round") as round_c, \
+            _Clocked(sim_scenarios, "_drive_uploads") as drive_c, \
+            _Clocked(sim_scenarios, "run_checks") as checks_c:
+        report = run_scenario(sc, b"chip-sim", n_nodes=n_nodes,
+                              devices=[dev])
+    if cuda:
+        torch.cuda.synchronize()
+    full_s = time.perf_counter() - t_phase
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    check(all(launches[k] > 0 for k in ("gf_apply", "podr2_tag",
+                                        "prf_blocks"))
+          and launches["gf_xor"] == 0,
+          f"sim: the world's kernels were not launched as expected: "
+          f"{launches}")
+    world = report.world
+    check(report.rounds_run == sc.rounds and report.uploads_active == 1,
+          f"sim: {report.rounds_run} rounds, {report.uploads_active} files "
+          f"active")
+    node = world.nodes[0]
+    st = node.runtime.state
+    (fh, f), = st.iter_prefix("file_bank", "file")
+    check(f.state == "active" and len(f.segments) == nseg,
+          f"sim: the upload is {f.state} with {len(f.segments)} segments")
+    adversarial = {f"m{j}" for j in world.storage.adversarial_miners}
+    hist = [(b, dict(e.data)) for b, e in st.event_history
+            if (e.pallet, e.name) == ("audit", "VerifyResult")]
+    latest = {d["miner"]: d for _, d in hist}
+    want = {m: not (m in adversarial and m in f.miners)
+            for m in (f"m{j}" for j in range(world.storage.n_miners))}
+    check({m: d["service"] for m, d in latest.items()} == want
+          and all(d["idle"] for d in latest.values()),
+          f"sim: verdicts {latest} (deal {f.miners}), want service {want}")
+    declared = min(b for b, e in st.event_history
+                   if (e.pallet, e.name) == ("file_bank",
+                                             "UploadDeclaration"))
+    failed = min(b for b, d in hist if not d["service"])
+
+    def slot(b):
+        return node.chain[b].claim.slot
+
+    slots_to_verdict = slot(failed) - slot(declared)
+    rounds = round_c.walls[-sc.rounds:]
+    setup_s = sum(round_c.walls[:-sc.rounds])
+    # the full-width run's wall, split: the world's build (its set-up
+    # rounds and the filler streams inside it), the blob, the upload, the
+    # scenario's rounds, the uploads' driving, the invariant checks, and
+    # the rest (scrapes, the planes' set-up)
+    split = {"build": sum(build_c.walls), "blob": sum(blob_c.walls),
+             "upload": sum(up_c.walls), "rounds": sum(rounds),
+             "drive": sum(drive_c.walls), "checks": sum(checks_c.walls)}
+    split["rest"] = full_s - sum(split.values())
+
+    # each kernel at the phase's shapes, against its plain version
+    cfg = world.pipeline.config
+    key = world.pipeline.podr2_key
+    n, blocks = cfg.fragment_size, cfg.blocks_per_fragment
+    shapes = []
+
+    def held(name, got, plain):
+        e = max_err(got, plain)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"sim: {name} at {tuple(got.shape)} differs from "
+              f"its plain version")
+
+    up = world.gateways[0].last_upload
+    frags_t = torch.from_numpy(np.array(up.fragments)).to(dev)
+    seg_t = frags_t[:, :cfg.k].contiguous()
+    tab = rs_kernel.tables(gf.cauchy_parity_matrix(cfg.k, cfg.m), dev)
+    held("gf_apply", rs_kernel.gf_apply(tab, seg_t),
+         rs_kernel.gf_apply_plain(tab, seg_t))
+    shapes.append(f"gf_apply encode {tuple(seg_t.shape)}")
+    del seg_t
+    miner = next(m for m in world.miners if m.account in f.miners)
+    ids_t = torch.from_numpy(up.ids.reshape(-1, 2).astype(np.int64)).to(dev)
+    fill_h = sorted(miner.filler_store)
+    fill_ids = torch.from_numpy(np.stack([
+        podr2.fragment_id_from_hash(h) for h in fill_h]).astype(
+            np.int64)).to(dev)
+    fill_t = torch.from_numpy(np.stack([np.frombuffer(
+        miner.filler_store[h], np.uint8) for h in fill_h])).to(dev)
+    every = torch.arange(blocks, device=dev)
+    for ids, fr in ((ids_t, frags_t.view(-1, n)), (fill_ids, fill_t)):
+        prf_lm = podr2_kernel.prf_blocks(key.prf_key, ids, None, blocks,
+                                         key.limbs, limb_major=True)
+        held("prf_blocks", prf_lm, prf.prf_plain(key.prf_key, ids, every,
+                                                 key.limbs).transpose(1, 2))
+        fb = fr.reshape(-1, blocks, podr2.BLOCK_BYTES)
+        held("podr2_tag", podr2_kernel.podr2_tag(key.weights, prf_lm, fb),
+             podr2_kernel.podr2_tag_plain(key.weights, prf_lm, fb))
+        shapes.append(f"prf_blocks (limb-major) and podr2_tag "
+                      f"{ids.shape[0]} x {blocks}")
+        del prf_lm, fb
+    del frags_t, fill_t
+    idx = podr2.gen_challenge(b"chip-sim-round", blocks, device=dev)[0]
+    owed = torch.from_numpy(np.stack([
+        podr2.fragment_id_from_hash(h) for h in sorted(miner.store)]).astype(
+            np.int64)).to(dev)
+    for ids in (owed, fill_ids):
+        held("prf_blocks", podr2_kernel.prf_blocks(
+            key.prf_key, ids, idx, idx.numel(), key.limbs),
+            prf.prf_plain(key.prf_key, ids, idx, key.limbs))
+        shapes.append(f"prf_blocks {ids.shape[0]} x {idx.numel()}")
+    del report, world, node, st, up, miner
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the card against the host at the library's test width ------------
+    pairs = []
+    zero_counts()
+    for name, lanes in (("adversarial_audit", 1), ("repair_storm", 3),
+                        ("miner_attrition", 1)):
+        walls = []
+        reps = []
+        for devices in ([dev] * lanes, ["cpu"] * 8):
+            t0 = time.perf_counter()
+            reps.append(run_scenario(SCENARIOS[name], b"chip-sim-pair",
+                                     n_nodes=20, devices=devices))
+            walls.append(time.perf_counter() - t0)
+        card_r, host_r = reps
+        check(card_r.witness() == host_r.witness(),
+              f"sim: {name}'s witness on {dev} differs from the host's")
+        check(_pool_counts(card_r.pool) == _pool_counts(host_r.pool),
+              f"sim: {name}'s pool counts on {dev} differ from the host's: "
+              f"{card_r.pool} != {host_r.pool}")
+        pool = "" if card_r.pool is None else (
+            f", pool {card_r.pool['n_devices']} lanes "
+            f"{[ln['batches'] for ln in card_r.pool['lanes']]} batches")
+        pairs.append(f"{name} {walls[0]:.3f} s on {dev} x {lanes}, "
+                     f"{walls[1]:.3f} s on the host{pool}")
+        del reps, card_r, host_r
+    launches_b = counts()
+    check(not cuda or all(launches_b[k] > 0 for k in ("gf_apply",
+                                                       "podr2_tag",
+                                                       "prf_blocks")),
+          f"sim: the card's test-width runs launched {launches_b}")
+    phase_s = time.perf_counter() - t_phase
+    ms = statistics.median(rounds) * 1e3
+    print(f"phase sim: adversarial_audit at {n_nodes} nodes (5 validators, "
+          f"4 miners, m1 and m2 adversarial) on {dev}, RS(2,1) upload of "
+          f"{nseg} x {seg / MIB:g} MiB "
+          f"segments ({nseg * (cfg.k + cfg.m)} fragments), {fillers} "
+          f"fillers a miner; {sc.rounds} rounds, "
+          f"audit-soundness held; deal {list(f.miners)}, latest service "
+          f"verdicts {sorted((m, d['service']) for m, d in latest.items())}"
+          f", {len(hist)} verdicts; {slots_to_verdict} slots from the "
+          f"declaration (block {declared}) to the first failed verdict "
+          f"(block {failed}); the full-width wall split (ms): "
+          f"{', '.join(f'{k} {v * 1e3:.3f}' for k, v in split.items())}; "
+          f"filler streams {sum(fill_c.walls) * 1e3:.3f} ms "
+          f"({len(fill_c.walls)} miners, inside build); setup rounds "
+          f"{setup_s * 1e3:.3f} ms (inside build); the scenario's "
+          f"rounds {sum(rounds) * 1e3:.3f} ms (median {ms:.3f}, max "
+          f"{max(rounds) * 1e3:.3f}); peak {peak / MIB:.1f} MiB; full-width "
+          f"wall {full_s * 1e3:.3f} ms; kernels byte-exact against their "
+          f"plain versions at {', '.join(shapes)}; launches {launches}; "
+          f"card against host at 20 nodes, witnesses and pool counts "
+          f"equal: {'; '.join(pairs)}; launches there {launches_b}; phase "
+          f"wall {phase_s * 1e3:.3f} ms {tag}")
+    return launches
+
+
 def native_phase(dev, data, tab, tag: str) -> str:
     """The C++ host codec (``ops/rs_native.py``) beside the card: RS(4,8)
     parity of ``data`` [B, 4, n] (on the card) on 1 thread and on
@@ -3958,7 +4236,11 @@ def main(argv: list[str]) -> int:
     launches_node = node_phase(dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 14. BASELINE geometry RS(4,8) ---------------------------------------
+    # 14. sim: the simulated network on the card at full width -----------
+    launches_sim = sim_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 15. BASELINE geometry RS(4,8) ---------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -3991,7 +4273,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 15. the xor path: RS(4,8) under strategy "xor", audited and repaired -
+    # 16. the xor path: RS(4,8) under strategy "xor", audited and repaired -
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -4068,7 +4350,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 16. known answer ------------------------------------------------------
+    # 17. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -4077,7 +4359,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 17. kernel times at the main paths' shapes --------------------------
+    # 18. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -4189,6 +4471,7 @@ def main(argv: list[str]) -> int:
             "launches_remediate": launches_remediate.get(name, 0),
             "launches_chain": launches_chain.get(name, 0),
             "launches_node": launches_node.get(name, 0),
+            "launches_sim": launches_sim.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -4223,7 +4506,7 @@ def main(argv: list[str]) -> int:
           f"{2 * flat_in.numel() / copy_ms / 1e9:.3f} TB/s read + written; "
           f"fill {flat_out.numel() / MIB:.0f} MiB {fill_ms:.4f} ms = "
           f"{flat_out.numel() / fill_ms / 1e9:.3f} TB/s (device times) {tag}")
-    # 18. native: the C++ host codec beside the card on the same bytes --
+    # 19. native: the C++ host codec beside the card on the same bytes --
     native_phase(dev, datax, tab48, tag)
     if args.parent:
         parent_turns(args.parent, [

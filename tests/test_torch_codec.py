@@ -3,7 +3,7 @@
 
 Tolerance 0: encoded bytes are protocol facts (signatures and state
 roots are taken over them). For every dataclass the port registers (its
-storage-audit plane's and its runtime's), the port's bytes equal the
+storage-audit plane's, its runtime's and its node's), the port's bytes equal the
 reference's, and a blob encoded by either package decodes in the other
 to equal fields. The reference's malformed inputs
 (tests/test_codec.py: the depth bound, truncation, trailing bytes,
@@ -19,6 +19,7 @@ import cess_tpu.chain.file_bank  # noqa: F401
 import cess_tpu.chain.runtime  # noqa: F401
 import cess_tpu.chain.tee_worker  # noqa: F401
 import cess_tpu.node.consensus  # noqa: F401
+import cess_tpu.node.network  # noqa: F401
 import cess_tpu.node.offchain  # noqa: F401
 from cess_tpu import codec as jcodec
 import cess_tpu_torch.chain.audit  # noqa: F401
@@ -26,6 +27,7 @@ import cess_tpu_torch.chain.file_bank  # noqa: F401
 import cess_tpu_torch.chain.runtime  # noqa: F401
 import cess_tpu_torch.chain.tee_worker  # noqa: F401
 import cess_tpu_torch.node.consensus  # noqa: F401
+import cess_tpu_torch.node.network  # noqa: F401
 import cess_tpu_torch.node.offchain  # noqa: F401
 from cess_tpu_torch import codec as pcodec
 
@@ -37,7 +39,10 @@ SLICE_TYPES = ["AttestationReport", "ChallengeInfo", "DealInfo", "Event",
                # the runtime's (the rest of chain/, node/consensus, vrf)
                "AssetDetails", "AssetMetadata", "Bill", "CacherInfo",
                "Exposure", "OssInfo", "SignedExtrinsic", "SlotClaim",
-               "Vote", "VrfProof"]
+               "Vote", "VrfProof",
+               # the node's (network, finality): imported here, since any
+               # test file of the worker may import them first
+               "Block", "Header", "Justification"]
 
 
 @dataclasses.dataclass(frozen=True)

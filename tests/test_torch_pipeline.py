@@ -221,6 +221,19 @@ def test_port_imports_no_jax_and_no_cess_tpu():
             "assert node.head().number == 3\n"
             "assert cess_tpu_torch.node.cli.main(['build-spec', '--chain',\n"
             "                                     'dev']) == 0\n"
+            # the simulated network with its storage plane, and cesslint
+            "import cess_tpu_torch.sim, cess_tpu_torch.sim.clock\n"
+            "import cess_tpu_torch.sim.world, cess_tpu_torch.sim.invariants\n"
+            "from cess_tpu_torch.sim import SCENARIOS, run_scenario\n"
+            "r = run_scenario(SCENARIOS['miner_churn'], b'iso', n_nodes=20,\n"
+            "                 devices=['cpu'])\n"
+            "assert r.rounds_run == 14 and r.uploads_active == 1\n"
+            "import cess_tpu_torch.analysis, cess_tpu_torch.analysis.flow\n"
+            "import cess_tpu_torch.analysis.__main__\n"
+            "from cess_tpu_torch.analysis import all_rules, lint_source\n"
+            "assert len(all_rules()) >= 14\n"
+            "assert lint_source('import time\\nt = time.time()\\n',\n"
+            "                   'cess_tpu_torch/sim/x.py').findings\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith('jax.') or m == 'cess_tpu'\n"
             "             or m.startswith('cess_tpu.'))\n"

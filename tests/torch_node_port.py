@@ -10,7 +10,9 @@ so that a worker process it spawns imports it by name.
 
 ``run(name, test, request)`` calls one test function of it with its
 fixtures (module-scoped ones built once per module and test file, as
-pytest would).
+pytest would). A test file may instead import the module's tests,
+``from port_<name> import *`` after ``port_module(name)``, and let pytest
+collect them, classes, parameter sets and marks included.
 ``run_lockstep(name, test, request)`` runs the reference's test and the
 port's, each recording after every slot (``Network.run_slot``) and every
 top-level commit, import, sync and warp sync of a ``Node`` its outcome
@@ -42,13 +44,31 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 REF, PORT = "cess_tpu", "cess_tpu_torch"
 
 # literal edits a reference file needs on the port: (old, new), each of
-# which must occur in the file
+# which must occur in the file (``@TESTS@`` in ``new``: this directory)
 SWAPS = {
     "test_network": [
         ("key = podr2.Podr2Key.generate(7)",
          'key = podr2.Podr2Key.generate(7, device="cpu")'),
         ("pipe = StoragePipeline(cfg, podr2_key=key)",
          'pipe = StoragePipeline(cfg, podr2_key=key, device="cpu")'),
+    ],
+    # the 8 host devices the JAX package's tests see (tests/conftest.py)
+    "test_sim": [
+        ('n_nodes=20)', 'n_nodes=20, devices=["cpu"] * 8)'),
+        ('n_nodes=20, tracer=tracer)',
+         'n_nodes=20, tracer=tracer, devices=["cpu"] * 8)'),
+        ('n_nodes=100)', 'n_nodes=100, devices=["cpu"] * 8)'),
+    ],
+    # the real tree's tests read the repository, and the port's CLI and
+    # baseline stand in for tools/cesslint.py and its baseline
+    "test_lint": [
+        ('REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))',
+         'REPO = os.path.dirname(@TESTS@)'),
+        ('os.path.join(REPO, "tools", "cesslint_baseline.json")',
+         'os.path.join(REPO, "cess_tpu_torch", "analysis", '
+         '"cesslint_baseline.json")'),
+        ('os.path.join(REPO, "tools", "cesslint.py")',
+         '"-m", "cess_tpu_torch.analysis"'),
     ],
 }
 
@@ -67,7 +87,7 @@ def port_source(name: str) -> str:
     for old, new in SWAPS.get(name, ()):
         if old not in src:
             raise RuntimeError(f"tests/{name}.py no longer holds {old!r}")
-        src = src.replace(old, new)
+        src = src.replace(old, new.replace("@TESTS@", repr(TESTS)))
     return re.sub(r"\bcess_tpu\b", PORT, src)
 
 
