@@ -77,8 +77,8 @@ class StoragePipeline(nn.Module):
     compute other bytes than the direct path."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
-                 podr2_key: podr2.Podr2Key | None = None, device=None,
-                 engine=None):
+                 podr2_key: podr2.Podr2Key | None = None, engine=None, *,
+                 device=None):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
@@ -207,7 +207,7 @@ class StoragePipeline(nn.Module):
                                         device=self.device)
         elif not isinstance(fragment_ids, (torch.Tensor, np.ndarray)):
             fragment_ids = np.asarray(fragment_ids)
-        ids = podr2.fragment_ids(fragment_ids.reshape(
+        ids = podr2.fragment_id_pairs(fragment_ids.reshape(
             (b * rows, 2) if fragment_ids.ndim == 3 else (b * rows,)),
             self.device)
         tags = podr2.tag_fragments(self.podr2_key, ids,

@@ -49,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import importlib
 import os
 import threading
 import time
@@ -67,6 +68,21 @@ from ..ops import podr2, regen
 from ..ops.rs import TorchCodec
 from ..resilience import faults
 from .hashing import filler_bytes, fragment_hash
+
+
+_REEXPORTS = {"DispatchError": "..chain.state",
+              "UserBrief": "..chain.file_bank", "Node": ".network"}
+
+
+def __getattr__(name: str):
+    # the reference's re-exports, resolved on first access: they load the
+    # chain runtime, which the device steps here never need
+    if name not in _REEXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_REEXPORTS[name], __package__),
+                    name)
+    globals()[name] = value
+    return value
 
 
 def _tensor(x, device: torch.device, dtype: torch.dtype | None = None
@@ -217,8 +233,8 @@ class AgentPipeline:
     calls whose fragments had to be copied to the device."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
-                 podr2_key: podr2.Podr2Key | None = None, device=None,
-                 engine=None):
+                 podr2_key: podr2.Podr2Key | None = None, engine=None, *,
+                 device=None):
         self.pipeline = StoragePipeline(config, podr2_key=podr2_key,
                                         device=device, engine=engine)
         self.fragment_uploads = 0
@@ -338,7 +354,7 @@ def host_codec(k: int, m: int, backend: str | None = None,
 def _host_codec(k: int, m: int, regen_: bool, strategy: str | None,
                 device: torch.device) -> HostCodec:
     if regen_:
-        return HostRegenCodec(regen.RegenCodec(k, m, device, strategy))
+        return HostRegenCodec(regen.RegenCodec(k, m, strategy, device=device))
     return HostCodec(TorchCodec(k, m, device, strategy))
 
 

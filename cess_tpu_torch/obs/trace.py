@@ -36,8 +36,9 @@ Export: :meth:`Tracer.export_chrome` gives Chrome trace-event JSON (one
 chrome://tracing).
 
 ``Tracer(device_annotations=True)`` additionally wraps each engine batch
-dispatch in ``torch.profiler.record_function("cess:<op>")``, so a
-``torch.profiler`` trace taken during the run lines up with the
+dispatch in ``torch.profiler.record_function("cess:<op>")`` and each
+streamed batch's dispatch in ``record_function("cess_stream#<n>")``, so
+a ``torch.profiler`` trace taken during the run lines up with the
 framework's spans.
 """
 from __future__ import annotations
@@ -202,9 +203,9 @@ class Tracer:
     trace_id:           the session identity every root span carries;
                         spans started from a remote ``context()`` adopt
                         the sender's instead (distributed traces).
-    device_annotations: engine batch dispatches additionally open a
-                        ``torch.profiler.record_function`` scope, so a
-                        profiler trace lines up with framework spans.
+    device_annotations: engine and stream batch dispatches additionally
+                        open a ``torch.profiler.record_function`` scope,
+                        so a profiler trace lines up with framework spans.
     """
 
     def __init__(self, capacity: int = 4096, trace_id: int = 1,

@@ -100,7 +100,7 @@ def fragment_id_from_hash(fragment_hash: bytes) -> np.ndarray:
     return np.array([v & 0xFFFFFFFF, v >> 32], dtype=np.uint32)
 
 
-def fragment_ids(ids, device) -> torch.Tensor:
+def fragment_id_pairs(ids, device) -> torch.Tensor:
     """Ids as int64 [F, 2] (lo, hi) words on ``device``: [F, 2] pairs are
     taken as they are, scalar ids [F] (or a single int) fold in as
     ``(id & 0xFFFFFFFF, id >> 32)``."""
@@ -128,7 +128,7 @@ def _id_pairs(ids, device) -> torch.Tensor:
     ``verify_aggregate`` do (a flat id list pairs up consecutive ids)."""
     if not isinstance(ids, (torch.Tensor, np.ndarray)):
         ids = np.asarray(ids)
-    return fragment_ids(ids.reshape(-1, 2), device)
+    return fragment_id_pairs(ids.reshape(-1, 2), device)
 
 
 def _one_id(fragment_id, device) -> torch.Tensor:
@@ -137,7 +137,7 @@ def _one_id(fragment_id, device) -> torch.Tensor:
         fragment_id = np.asarray(fragment_id)
     if tuple(fragment_id.shape) == (2,):
         fragment_id = fragment_id.reshape(1, 2)
-    ids = fragment_ids(fragment_id, device)
+    ids = fragment_id_pairs(fragment_id, device)
     if ids.shape[0] != 1:
         raise ValueError(f"expected one fragment id, got {ids.shape[0]}")
     return ids
@@ -177,7 +177,7 @@ def tag_fragment(key: Podr2Key, fragment_id, fragment) -> torch.Tensor:
                                                m.shape[0], key.limbs), m)
 
 
-def tag_fragments(key: Podr2Key, ids, fragments: torch.Tensor,
+def tag_fragments(key: Podr2Key, fragment_ids, fragments: torch.Tensor,
                   first_block: int | None = None) -> torch.Tensor:
     """Tags [F, blocks, limbs] int32 of fragments [F, bytes] uint8 with
     ids [F] or [F, 2], on the fragments' device.
@@ -192,7 +192,7 @@ def tag_fragments(key: Podr2Key, ids, fragments: torch.Tensor,
     f, nbytes = fragments.shape
     lanes = key.alpha.shape[0] * pf.BYTES_PER_ELEM
     blocks = Podr2Params(key.alpha.shape[0]).blocks_for(nbytes)
-    ids = fragment_ids(ids, dev)
+    ids = fragment_id_pairs(fragment_ids, dev)
     if ids.shape[0] != f:
         raise ValueError(f"{ids.shape[0]} ids for {f} fragments")
     at = None if first_block is None else torch.arange(
@@ -203,20 +203,22 @@ def tag_fragments(key: Podr2Key, ids, fragments: torch.Tensor,
                      fragments.reshape(f, blocks, lanes))
 
 
-def gen_challenge(seed: bytes | int, num_blocks: int,
+def gen_challenge(seed_bytes: bytes | int, num_blocks: int,
                   count: int | None = None, device=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Round randomness -> (indices [c] int64, nu [c] int32) on
     ``device``; derived on the host (a few thousand words)."""
-    idx, nu = prf.challenge(seed, num_blocks, count)
+    idx, nu = prf.challenge(seed_bytes, num_blocks, count)
     dev = resolve_device(device)
     return idx.to(dev), nu.to(dev)
 
 
-def aggregate_coeffs(seed: bytes, ids, device=None) -> torch.Tensor:
+def aggregate_coeffs(seed_bytes: bytes, fragment_ids,
+                     device=None) -> torch.Tensor:
     """Per-fragment aggregation coefficients r [F] int32, computed on
     ``device``; only the round seed's sha256 runs on the host."""
-    return prf.aggregate_coeffs(seed, _id_pairs(ids, resolve_device(device)))
+    return prf.aggregate_coeffs(seed_bytes, _id_pairs(
+        fragment_ids, resolve_device(device)))
 
 
 def prove(fragment: torch.Tensor, tags: torch.Tensor, idx, nu,
@@ -259,7 +261,7 @@ def prove_aggregate(fragments, tags, idx, nu, r,
             pf.dotmod(r, sigma_f, dim=-2).to(torch.int32))
 
 
-def verify_aggregate(key: Podr2Key, fragment_ids_, num_blocks: int, idx, nu,
+def verify_aggregate(key: Podr2Key, fragment_ids, num_blocks: int, idx, nu,
                      r, mu, sigma) -> torch.Tensor:
     """The TEE's check of an aggregated proof against the owed fragment
     set: a bool scalar, true only when every limb equation holds.
@@ -269,7 +271,7 @@ def verify_aggregate(key: Podr2Key, fragment_ids_, num_blocks: int, idx, nu,
     dev = mu.device
     key = key.to(dev)
     r = r.to(dev, torch.int64)
-    ids = _id_pairs(fragment_ids_, dev)                          # [N*F, 2]
+    ids = _id_pairs(fragment_ids, dev)                           # [N*F, 2]
     idx = idx.to(dev, torch.int64)
     f = prf_blocks(key.prf_key, ids, idx, idx.shape[0], key.limbs)
     lhs_f = pf.dotmod(nu.to(dev)[None, :, None], f, dim=1)       # [N*F, limbs]
@@ -299,12 +301,12 @@ def verify(key: Podr2Key, fragment_id, num_blocks: int, idx, nu, mu,
     return torch.all(pf.addmod(lhs, rhs) == sigma.to(dev, torch.int64))
 
 
-def verify_batch(key: Podr2Key, fragment_ids_, num_blocks: int, idx, nu, mu,
+def verify_batch(key: Podr2Key, fragment_ids, num_blocks: int, idx, nu, mu,
                  sigma) -> torch.Tensor:
     """Per-fragment proofs mu [F, sectors], sigma [F, limbs] -> bool [F]."""
     dev = mu.device
     key = key.to(dev)
-    ids = fragment_ids(fragment_ids_, dev)
+    ids = fragment_id_pairs(fragment_ids, dev)
     idx = idx.to(dev, torch.int64)
     f = prf_blocks(key.prf_key, ids, idx, idx.shape[0], key.limbs)
     lhs = pf.dotmod(nu.to(dev)[None, :, None], f, dim=1)           # [F, limbs]

@@ -186,7 +186,12 @@ class RegenCodec(TorchCodec):
     """``TorchCodec`` whose decode and repair matrices come from the
     closed-form Cauchy construction, with the symbol fold on the device.
     Its warm programs (``warm_reconstruct``, ``warm_fold``) share one
-    cache and one ``warm_hits`` count."""
+    cache and one ``warm_hits`` count. ``strategy`` takes the TPU
+    package's position; ``device`` is keyword-only."""
+
+    def __init__(self, k: int, m: int, strategy: str | None = None, *,
+                 device=None):
+        super().__init__(k, m, device, strategy)
 
     def _matrix(self, kind: str, present: tuple[int, ...],
                 missing: tuple[int, ...]) -> np.ndarray:

@@ -49,10 +49,10 @@ STRATEGIES = ("gather", "bitmatrix", "pallas", "xor", "auto")
 KERNELS = (gf_apply, rs_xor.gf_xor)   # the wrappers a GF apply may launch
 
 
-def default_strategy(device: torch.device) -> str:
-    """The dense strategy's name for ``device``, as the TPU package names
-    its default for the same backend."""
-    return "gather" if device.type == "cpu" else "pallas"
+def default_strategy(device=None) -> str:
+    """The dense strategy's name for ``device`` (the card when None), as
+    the TPU package names its default for the same backend."""
+    return "gather" if resolve_device(device).type == "cpu" else "pallas"
 
 
 def decide(sched: xor_sched.XorSchedule, shape) -> dict:

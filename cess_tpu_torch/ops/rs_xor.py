@@ -357,7 +357,7 @@ gf_xor.launches = 0
 gf_xor.captured = 0
 
 
-def apply_schedule(sched: XorSchedule, data: torch.Tensor,
+def apply_schedule(sched: XorSchedule, data: torch.Tensor, *,
                    ops: torch.Tensor | None = None) -> torch.Tensor:
     """Apply a compiled schedule to [..., q, n] uint8 data on its device:
     [..., r, n] uint8. Any n: the kernel masks the ragged last group and

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.pipeline import StoragePipeline
 from ..ops import pfield as pf
 from ..ops import podr2
 
@@ -280,7 +281,7 @@ class _Staged:
 def _pair_ids(piece: torch.Tensor) -> torch.Tensor:
     """A seg row's ids piece ([b, rows] or [b, rows, 2]) as [F, 2] words."""
     flat = piece.reshape(-1, 2) if piece.dim() == 3 else piece.reshape(-1)
-    return podr2.fragment_ids(flat, piece.device)
+    return podr2.fragment_id_pairs(flat, piece.device)
 
 
 def _encode_tag(pipeline, mesh: Mesh, staged: _Staged, data: ShardedTensor,
@@ -381,7 +382,7 @@ def _blocks_local(pipeline, mesh: Mesh) -> int:
     return blocks // mesh.shape["byte"]
 
 
-def sharded_pipeline_step(pipeline, mesh: Mesh):
+def sharded_pipeline_step(pipeline: StoragePipeline, mesh: Mesh):
     """The full pipeline step sharded over (seg, byte).
 
     Per step: RS-encode the segment batch, PoDR2-tag every fragment,
@@ -421,7 +422,8 @@ def sharded_pipeline_step(pipeline, mesh: Mesh):
     return step
 
 
-def sharded_stream_step(pipeline, mesh: Mesh, pair_ids: bool = False):
+def sharded_stream_step(pipeline: StoragePipeline, mesh: Mesh,
+                        pair_ids: bool = False):
     """The fused encode + tag step (no prove or verify) over (seg, byte),
     the program behind :func:`stream_entry`: ``run(data, ids) ->
     {"fragments": [B, k+m, n], "tags": [B, k+m, blocks, limbs]}`` as
@@ -444,8 +446,8 @@ def sharded_stream_step(pipeline, mesh: Mesh, pair_ids: bool = False):
     return run
 
 
-def stream_entry(pipeline, mesh: Mesh, batch: int, pair_ids: bool = False,
-                 streams=None) -> dict:
+def stream_entry(pipeline: StoragePipeline, mesh: Mesh, batch: int,
+                 pair_ids: bool = False, streams=None) -> dict:
     """The ``(program, put, put_ids)`` kwargs that point a
     ``StreamingIngest`` (``serve/stream.py``) at a mesh::
 
@@ -482,8 +484,8 @@ def stream_entry(pipeline, mesh: Mesh, batch: int, pair_ids: bool = False,
     return {"program": program, "put": put, "put_ids": put_ids}
 
 
-def pool_stream_entry(pipeline, devices, batch: int, pair_ids: bool = False,
-                      streams=None) -> dict:
+def pool_stream_entry(pipeline: StoragePipeline, devices, batch: int,
+                      pair_ids: bool = False, streams=None) -> dict:
     """:func:`stream_entry` over a ``DevicePool``'s lane devices
     (``serve/pool.py``): an ``(n_lanes, 1)`` mesh in lane order, so each
     staged batch fans its segment axis across every lane; ``streams``:

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.pipeline import StoragePipeline
 from . import mesh as _mesh
 
 
@@ -146,7 +147,7 @@ def _sum_processes(value: torch.Tensor) -> int:
     return int(value.item())
 
 
-def run_corpus(pipeline, mesh: _mesh.Mesh, plan: CorpusPlan,
+def run_corpus(pipeline: StoragePipeline, mesh: _mesh.Mesh, plan: CorpusPlan,
                local_batch_fn: Callable[[int, int], np.ndarray],
                challenge_seed: bytes = b"corpus-round") -> Iterator[dict]:
     """Stream ``plan`` through ``mesh.sharded_pipeline_step`` (encode, tag,

@@ -105,7 +105,8 @@ class DeviceLane:
 
 def lane_codec(codec, device: torch.device):
     """A codec of ``codec``'s kind, geometry and strategy on ``device``."""
-    return type(codec)(codec.k, codec.m, device, strategy=codec.strategy)
+    return type(codec)(codec.k, codec.m, device=device,
+                       strategy=codec.strategy)
 
 
 class DevicePool:

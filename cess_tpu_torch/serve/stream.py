@@ -66,10 +66,16 @@ rows zeroed) and ``put_ids`` the batch's host ids; a pool's ``put``
 copies each lane's seg slice to the lane's device on the lane's stream.
 A mesh program's results are ``ShardedTensor``s, complete when drained;
 ``ingest`` gathers them.
+
+Under a tracer with ``device_annotations`` on, each batch's dispatch runs
+inside ``torch.profiler.record_function("cess_stream#<n>")``, ``n`` the
+stats' batch count, as the TPU package's runs under its profiler's step
+annotation; disarmed it is a ``contextlib.nullcontext``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from typing import Iterator
 
@@ -257,6 +263,15 @@ class StreamingIngest:
             return self._engine.tracer
         return trace.armed_tracer()
 
+    @staticmethod
+    def _step_annotation(tracer, step: int):
+        """Profiler alignment for the streamed path: with
+        ``device_annotations`` on, batch ``step``'s dispatch runs inside
+        ``torch.profiler.record_function("cess_stream#<step>")``."""
+        if tracer is None or not tracer.device_annotations:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"cess_stream#{step}")
+
     def _staging(self, dev: torch.device, seg: int):
         """The ``depth`` device buffers and the copy stream, made at
         first use on the card and kept."""
@@ -409,7 +424,8 @@ class StreamingIngest:
                     st.h2d_s += h2d
                     t0 = time.perf_counter()
                     faults.inject("stream.dispatch")   # chaos seam: launch
-                    out = program(seg_in, ids)
+                    with self._step_annotation(tracer, st.batches):
+                        out = program(seg_in, ids)
                     done = _completion(out, dev)
                 except BaseException as e:
                     # the batch span lands in the ring with its error and

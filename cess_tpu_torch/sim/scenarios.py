@@ -599,7 +599,8 @@ def _pool_engine(world: World, profile: bool = False,
         plane = ProfilePlane()
     pipe = world.pipeline
     k, m, dev = pipe.config.k, pipe.config.m, pipe.device
-    codec = _regen.RegenCodec(k, m, dev) if regen else TorchCodec(k, m, dev)
+    codec = (_regen.RegenCodec(k, m, device=dev) if regen
+             else TorchCodec(k, m, dev))
     pool = DevicePool(world.devices, n=None if lanes is True else int(lanes))
     return SubmissionEngine(codec, AuditBackend(pipe.podr2_key, dev),
                             resilience=ResilienceConfig(), pool=pool,

@@ -241,9 +241,26 @@ limit):
    gives rounds, slots to the verdict, the upload's, the filler
    streams', the rounds' and the phase's walls and the peak device
    memory;
-15. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
+15. trace: the main path on the card inside one ``torch.profiler``
+   window (CPU and CUDA activity, every thread recorded) after one
+   warm-up pass, with ``Tracer(device_annotations=True)``: the RS(2,1)
+   forward of 32 segments of 16 MiB and one audit round over its 753
+   challenged blocks, the RS(4,8) ``"xor"`` forward on 8 segments, an
+   engine window (4 submitters: encode, tag, prove, verify) and
+   ``StreamingIngest`` of 8 segments in batches of 2. Each kernel's
+   device events in the trace must equal its wrapper's launches over
+   the window; the engine must open one ``cess:<op>`` range per batch
+   and every kernel launch on its threads (paired with its kernel by
+   the profiler's correlation id) must lie inside one; the stream must
+   open one ``cess_stream#<n>`` range per batch; every result must equal
+   the warm-up pass's. The lines give the device's busy and idle share
+   over the window, the top device operations, the audit round split
+   into ``prove_aggregate``'s op chain, ``prf_blocks`` and the host time
+   around them, and the longest idle gaps with the host range each fell
+   in; the Chrome trace is written to ``build/trace/``;
+16. RS(4,8) on 8 segments of 16 MiB: forward, audit round, and a decode
    of the data from four parity fragments;
-16. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
+17. xor path: ``StoragePipeline`` RS(4,8) under strategy "xor" on 32
    segments of 16 MiB (384 fragments of 4 MiB), byte-equal to the dense
    pipeline's fragments and tags; an audit round; ``RegenCodec(4, 8,
    strategy="xor")`` rebuilds lost fragment 0 of every segment from
@@ -251,10 +268,10 @@ limit):
    warm (CUDA graph) reconstruct; "auto" reads dense at one row and xor
    at 32. Counters are zeroed just before; ``gf_apply`` must not launch
    in the xor forward;
-17. known answer: the port at ``cess_tpu_torch.kat``'s configuration
+18. known answer: the port at ``cess_tpu_torch.kat``'s configuration
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
-18. kernel times beside the plain versions' times and each kernel's
+19. kernel times beside the plain versions' times and each kernel's
    bound: bytes over 3.35 TB/s or integer operations over
    SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
    operations: per 32-byte group the schedule's XORs and the bit
@@ -265,7 +282,7 @@ limit):
    the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
    RS(4,8) encode in turns (the "auto" verdict); and what the card's
    memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
-19. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
+20. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
    ``build/native/``) on the timing phase's RS(4,8) input [32, 4, 4 MiB]:
    ``NativeCodec(4, 8)`` parity on 1 thread and on ``os.cpu_count()``
    threads and the decode of the data from four parity fragments,
@@ -273,7 +290,7 @@ limit):
    "cpu")`` on a slice; the native GiB/s, ``gf_apply``'s device GiB/s on
    the same bytes and their ratio, ``bench.py``'s CPU-speedup measure (a
    measurement, not a gate);
-20. with ``--parent DIR`` (another checkout of the repository, e.g. the
+21. with ``--parent DIR`` (another checkout of the repository, e.g. the
    parent commit unpacked by ``git archive``): its ``csrc/*.cu`` are
    built too, and ``gf_apply`` (RS(2,1) and RS(4,8) encode) and
    ``prf_blocks`` are timed through the same wrappers on the same inputs
@@ -290,8 +307,9 @@ The line before the last is the ``{"kernels": [...]}`` record (each
 entry's ``launches`` from the main path, ``launches_serve``,
 ``launches_stream``, ``launches_chaos``, ``launches_agents``,
 ``launches_mesh``, ``launches_pool``, ``launches_slo``,
-``launches_remediate``, ``launches_chain``, ``launches_node`` and
-``launches_sim`` from phases 4 to 14); the last is ``{"ok": true, "device": {...}}``.
+``launches_remediate``, ``launches_chain``, ``launches_node``,
+``launches_sim`` and ``launches_trace`` from phases 4 to 15); the last is
+``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA device it exits 2 and prints no
 result. It imports neither jax nor ``cess_tpu``.
 """
@@ -299,6 +317,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1624,7 +1643,7 @@ def mesh_phase(dev, zero_counts, counts, errs: dict, tag: str, cfg=None,
              rs_kernel.gf_apply_plain(tab, col))
         bl = blocks // byte
         at = torch.arange(bl * (byte - 1), blocks, device=dev)
-        pairs = podr2.fragment_ids(ids[:8].reshape(-1), dev)
+        pairs = podr2.fragment_id_pairs(ids[:8].reshape(-1), dev)
         prf_lm = podr2_kernel.prf_blocks(key.prf_key, pairs, at, bl,
                                          key.limbs, limb_major=True)
         held("prf_blocks", prf_lm, prf.prf_plain(
@@ -3822,6 +3841,515 @@ def sim_phase(dev, zero_counts, counts, errs: dict, tag: str,
     return launches
 
 
+# the port's kernels by the names their __global__ functions carry on the
+# profiler's device timeline; the launch calls' categories (cudaLaunchKernel,
+# cuLaunchKernel)
+TRACE_KERNEL = re.compile(r"\b(gf_apply|podr2_tag|prf_blocks|gf_xor)_kernel\b")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def op_name(name: str, width: int = 48) -> str:
+    """A device event's name without its return type, template and
+    argument lists."""
+    name = name.replace("void ", "", 1).replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name)[0].strip()[:width]
+
+
+def merged(spans) -> list:
+    """Sorted (start, end) spans merged where they overlap."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def covered(spans, lo: float, hi: float) -> float:
+    """Length of [lo, hi] that the merged ``spans`` cover."""
+    return sum(max(0.0, min(e, hi) - max(s, lo)) for s, e in spans)
+
+
+def profile_events(fn, cuda: bool, path: str) -> list:
+    """``fn()`` inside one ``torch.profiler`` window that records every
+    thread (the engine's batcher too) and, on the card, the device; the
+    window's complete events from its Chrome trace, written to ``path``."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        fail(f"trace: torch {torch.__version__} cannot profile every thread "
+             "(no profile_all_threads): the engine's batcher would go unseen")
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=config) as prof:
+        fn()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("ph") == "X" and "dur" in e]
+
+
+def trace_phase(dev, zero_counts, counts, errs: dict, tag: str,
+                segment_size: int | None = None) -> dict:
+    """The main path traced on the card with ``torch.profiler`` and the
+    annotations armed. After one warm-up pass of the same work, one
+    profiler window (``ProfilerActivity.CPU`` and ``CUDA``, every thread
+    recorded) holds: the main path's forward (RS(2,1), 32 segments of 16
+    MiB: 96 fragments of 8 MiB) and one audit round over its 753
+    challenged blocks, in ranges ``smoke:forward`` and ``smoke:audit``
+    (``smoke:gen_challenge``, ``smoke:aggregate_coeffs``,
+    ``smoke:prove_aggregate``, ``smoke:verify_aggregate``); the RS(4,8)
+    ``"xor"`` forward on 8 segments (``gf_xor``); an engine window under
+    ``Tracer(device_annotations=True)`` (4 submitters, each an encode of
+    2 segments, a tag of their fragments, an aggregated proof and its
+    check); and ``StreamingIngest(pipe, 2)`` over 8 pinned segments under
+    the same tracer. Counters are zeroed just before the window and read
+    just after.
+
+    Checks: each kernel's device events in the trace equal its wrapper's
+    ``launches`` (the profiler and the counters agree); one ``cess:<op>``
+    range per engine batch, and every kernel launch on an engine thread
+    (a ``cudaLaunchKernel`` or ``cuLaunchKernel`` call paired with its
+    kernel by the profiler's correlation id) inside one; one
+    ``cess_stream#<n>`` range per stream batch; every result of the
+    window equal to the warm-up pass's. Then each kernel is held against
+    its plain version at the window's shapes, on its inputs: the
+    forward's parity (``gf_apply`` [32, 2, 8 MiB]), each submitter's
+    engine encode and tags and the kernel at the engine's widest batch
+    ([8, 2, 8 MiB]), two segments of the xor forward's parity
+    (``gf_xor``), the first stream batch's PRF and tags (6 fragments)
+    and the stream's tags as the window made them, and the audit
+    round's PRF at its 753 challenged blocks for its 96 ids.
+
+    The lines give the window's device busy and idle share (the union of
+    kernel, copy and set intervals over the window), the top device
+    operations by time, the audit round split into ``prove_aggregate``'s
+    op chain on the device, ``prf_blocks`` and the host time around them
+    (each step's range, the host's operators and runtime calls), and the
+    longest idle gaps with the host range each fell in. A smaller
+    ``segment_size`` and a CPU device rehearse the phase on the host:
+    only the host side is traced there and the device checks are
+    skipped. Returns the window's launches."""
+    import collections
+    import os
+    import threading
+
+    import torch
+    from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
+    from cess_tpu_torch.obs import trace
+    from cess_tpu_torch.ops import podr2, podr2_kernel, prf, rs_kernel
+    from cess_tpu_torch.serve import StreamingIngest, make_engine
+
+    nseg, xor_segs, threads, per = 32, 8, 4, 2
+    stream_segs, stream_batch = 8, 2
+    cuda = dev.type == "cuda"
+    cfg = PipelineConfig(segment_size=segment_size
+                         or PipelineConfig().segment_size)
+    rows, n = cfg.k + cfg.m, cfg.fragment_size
+    blocks = cfg.blocks_per_fragment
+    nfrag = nseg * rows
+    t_phase = time.perf_counter()
+    pipe = StoragePipeline(cfg, device=dev)
+    key = pipe.podr2_key
+    cfgx = PipelineConfig(k=4, m=8, segment_size=cfg.segment_size,
+                          strategy="xor")
+    pipex = StoragePipeline(cfgx, device=dev)
+    segments = rand_bytes((nseg, cfg.segment_size), 80, dev)
+    segx = rand_bytes((xor_segs, cfg.segment_size), 81, dev)
+    id_pairs = torch.stack([torch.arange(nfrag, device=dev),
+                            torch.zeros(nfrag, dtype=torch.int64,
+                                        device=dev)], dim=1)
+    seed = b"chip-smoke-trace-round"
+    src = torch.empty((stream_segs, cfg.segment_size), dtype=torch.uint8,
+                      pin_memory=cuda)
+    src.copy_(rand_bytes(src.shape, 82, dev))
+    sub = [rand_bytes((per, cfg.k, n), 83 + i, dev) for i in range(threads)]
+    sub_ids = [torch.stack([torch.arange(i * per * rows, (i + 1) * per * rows,
+                                         device=dev),
+                            torch.full((per * rows,), 9, device=dev)], dim=1)
+               for i in range(threads)]
+    tracer = trace.Tracer(device_annotations=True)
+    eng = make_engine(cfg.k, cfg.m, podr2_key=key, tracer=tracer,
+                      rs_backend=None if cuda else "cpu",
+                      audit_backend=None if cuda else "cpu")
+    stream = StreamingIngest(pipe, stream_batch)
+    rf = torch.profiler.record_function
+
+    def main_path(res):
+        with rf("smoke:forward"):
+            out = pipe(segments)
+        flat = out["fragments"].view(nfrag, n)
+        tags = out["tags"].view(nfrag, blocks, -1)
+        with rf("smoke:audit"):
+            with rf("smoke:gen_challenge"):
+                idx, nu = podr2.gen_challenge(seed, blocks, device=dev)
+            with rf("smoke:aggregate_coeffs"):
+                r = podr2.aggregate_coeffs(seed, id_pairs, device=dev)
+            with rf("smoke:prove_aggregate"):
+                mu, sigma = podr2.prove_aggregate(flat, tags, idx, nu, r)
+            with rf("smoke:verify_aggregate"):
+                ok = bool(podr2.verify_aggregate(key, id_pairs, blocks, idx,
+                                                 nu, r, mu, sigma))
+        res["main"] = (out, mu, sigma, ok, idx.numel())
+        with rf("smoke:xor_forward"):
+            res["xor"] = pipex(segx)
+
+    def engine_window(res):
+        go = threading.Barrier(threads)
+        errors = []
+
+        def worker(i):
+            try:
+                go.wait()
+                enc = eng.encode(sub[i])
+                frs = enc.reshape(per * rows, n)
+                tg = eng.tag_fragments(sub_ids[i], frs)
+                idx, nu = podr2.gen_challenge(seed, blocks, device=dev)
+                r = podr2.aggregate_coeffs(seed, sub_ids[i], device=dev)
+                mu, sigma = eng.prove_aggregate(frs, tg, idx, nu, r)
+                ok = eng.verify_aggregate(sub_ids[i], blocks, idx, nu, r,
+                                          mu, sigma)
+                res[i] = (enc, tg, mu, sigma, bool(ok))
+            except BaseException as e:      # reported by the main thread
+                errors.append((i, e))
+                go.abort()
+
+        workers = [threading.Thread(target=worker, args=(i,))
+                   for i in range(threads)]
+        with rf("smoke:engine"):
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(600)
+        check(not errors, f"trace: a submitter failed: {errors[:1]}")
+
+    def stream_run(res):
+        with rf("smoke:stream"), trace.armed(tracer):
+            res["stream"] = stream.ingest(src)
+
+    def work():
+        res = {}
+        with rf("smoke:trace"):
+            main_path(res)
+            engine_window(res)
+            stream_run(res)
+            if cuda:
+                torch.cuda.synchronize(dev)
+        return res
+
+    warm = work()                                      # the warm-up pass
+    if cuda:
+        torch.cuda.synchronize(dev)
+    batches0 = {c: s["batches"] for c, s in
+                eng.stats_snapshot()["classes"].items()}
+    stream0 = stream.stats.batches
+    zero_counts()
+    got = {}
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "trace", "chip_smoke_trace.json")
+    t0 = time.perf_counter()
+    events = profile_events(lambda: got.update(work()), cuda, path)
+    window_s = time.perf_counter() - t0
+    launches = counts()
+    snap = eng.stats_snapshot()["classes"]
+    eng.close()
+    engine_batches = {c: s["batches"] - batches0.get(c, 0)
+                      for c, s in snap.items()
+                      if s["batches"] - batches0.get(c, 0)}
+    stream_batches = stream.stats.batches - stream0
+
+    # every result of the window equal to the warm-up pass's
+    (out, mu, sigma, ok, nidx), (wout, wmu, wsigma, wok, _) = \
+        got["main"], warm["main"]
+    check(ok and wok, "trace: the audit round did not verify")
+    check(nidx == 753 or segment_size,
+          f"trace: the challenge has {nidx} blocks, not 753")
+    check(all(torch.equal(a, b) for a, b in (
+        (out["fragments"], wout["fragments"]), (out["tags"], wout["tags"]),
+        (mu, wmu), (sigma, wsigma),
+        (got["xor"]["fragments"], warm["xor"]["fragments"]),
+        (got["stream"]["fragments"], warm["stream"]["fragments"]),
+        (got["stream"]["tags"], warm["stream"]["tags"]))),
+        "trace: a result of the traced pass differs from the warm-up's")
+    for i in range(threads):
+        check(got[i][4] and all(torch.equal(torch.as_tensor(a),
+                                            torch.as_tensor(b))
+                                for a, b in zip(got[i][:4], warm[i][:4])),
+              f"trace: engine submitter {i}'s results differ or fail")
+
+    # each kernel at the window's shapes, against its plain version
+    def held(name, got, plain):
+        e = max_err(got, plain)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"trace: {name} at {tuple(got.shape)} differs from "
+              f"its plain version")
+
+    tab = pipe.parity_tables
+    every = torch.arange(blocks, device=dev)
+
+    def plain_prf(ids):
+        return prf.prf_plain(key.prf_key, ids, every, key.limbs).transpose(
+            1, 2)
+
+    def plain_tags(ids, frs):
+        return podr2_kernel.podr2_tag_plain(
+            key.weights, plain_prf(ids),
+            frs.reshape(-1, blocks, podr2.BLOCK_BYTES))
+
+    fr = out["fragments"]
+    check(torch.equal(fr[:, :cfg.k].reshape(nseg, -1), segments),
+          "trace: the forward's data rows differ from its segments")
+    held("gf_apply", fr[:, cfg.k:], rs_kernel.gf_apply_plain(
+        tab, segments.view(nseg, cfg.k, n)))
+    del fr, out, wout
+    for i in range(threads):
+        enc, tg = (torch.as_tensor(x) for x in got[i][:2])
+        check(torch.equal(enc[:, :cfg.k], sub[i]),
+              f"trace: engine submitter {i}'s data rows differ")
+        held("gf_apply", enc[:, cfg.k:],
+             rs_kernel.gf_apply_plain(tab, sub[i]))
+        held("podr2_tag", tg, plain_tags(sub_ids[i], enc))
+    widest = torch.cat(sub)
+    held("gf_apply", rs_kernel.gf_apply(tab, widest),
+         rs_kernel.gf_apply_plain(tab, widest))
+    del widest, enc, tg
+    xfr = got["xor"]["fragments"]
+    check(torch.equal(xfr[:, :4].reshape(xor_segs, -1), segx),
+          "trace: the xor forward's data rows differ from its segments")
+    held("gf_xor", xfr[:2, 4:], rs_kernel.gf_apply_plain(
+        pipex.parity_tables, segx[:2].view(2, 4, -1)))
+    del xfr
+    sfr = got["stream"]["fragments"][:stream_batch].reshape(-1, n)
+    ids0 = torch.arange(stream_batch * rows, device=dev)
+    pairs0 = podr2.fragment_id_pairs(ids0, dev)
+    prf_lm = podr2_kernel.prf_blocks(key.prf_key, pairs0, None, blocks,
+                                     key.limbs, limb_major=True)
+    held("prf_blocks", prf_lm, plain_prf(pairs0))
+    fb = sfr.reshape(-1, blocks, podr2.BLOCK_BYTES)
+    held("podr2_tag", podr2_kernel.podr2_tag(key.weights, prf_lm, fb),
+         podr2_kernel.podr2_tag_plain(key.weights, prf_lm, fb))
+    held("podr2_tag", got["stream"]["tags"][:stream_batch].reshape(
+        stream_batch * rows, blocks, -1), plain_tags(pairs0, sfr))
+    del sfr, prf_lm, fb, got, warm
+    idx, _ = podr2.gen_challenge(seed, blocks, device=dev)
+    held("prf_blocks", podr2_kernel.prf_blocks(
+        key.prf_key, id_pairs, idx, idx.numel(), key.limbs),
+        prf.prf_plain(key.prf_key, id_pairs, idx, key.limbs))
+
+    # the profiler's own view
+    ranges = trace_ranges(events, engine_batches, stream_batches)
+    activity = "CPU and CUDA" if cuda else "CPU"
+    head = (f"phase trace: one torch.profiler window ({activity}, every "
+            f"thread) over the main path's forward and audit round (RS(2,1), "
+            f"{nseg} x {cfg.segment_size / MIB:g} MiB, {nfrag} fragments, "
+            f"{nidx} challenged blocks), the RS(4,8) xor forward on "
+            f"{xor_segs} segments, an engine window ({threads} submitters: "
+            f"encode, tag, prove, verify) and StreamingIngest of "
+            f"{stream_segs} segments in batches of {stream_batch}, "
+            f"annotations armed ({window_s * 1e3:.3f} ms with the profiler's "
+            f"start and export); {len(ranges['cess'])} cess:<op> ranges = "
+            f"the engine's batches {engine_batches}; "
+            f"{len(ranges['steps'])} cess_stream#<n> ranges = "
+            f"{stream_batches} stream batches")
+    if not cuda:
+        # the rehearsal's stand-in for the launch check: aten operators on
+        # the engine's threads outside a cess:<op> range
+        ops = [e for e in events if e.get("cat") == "cpu_op"
+               and e["tid"] in ranges["engine_tids"]]
+        stray = [e["name"] for e in ops if not any(
+            r["tid"] == e["tid"] and r["ts"] <= e["ts"] <= r["ts"] + r["dur"]
+            for r in ranges["cess"])]
+        print(f"{head}; CPU rehearsal, host side only: {len(ops)} aten "
+              f"operators on engine threads, {len(stray)} outside a "
+              f"cess:<op> range {tag}")
+        return launches
+    lines = trace_report(events, ranges, launches)
+    print(f"{head}; {lines[0]} {tag}")
+    for line in lines[1:]:
+        print(f"{line}; phase {(time.perf_counter() - t_phase) * 1e3:.3f} ms, "
+              f"trace {os.path.relpath(path)} {tag}"
+              if line is lines[-1] else f"{line} {tag}")
+    return launches
+
+
+def trace_ranges(events: list, engine_batches: dict,
+                 stream_batches: int) -> dict:
+    """The window's annotation ranges, checked: one ``smoke:trace``, one
+    ``cess:<op>`` per engine batch, one ``cess_stream#<n>`` per stream
+    batch, each n once."""
+    window = [e for e in events if e["name"] == "smoke:trace"
+              and e.get("cat") == "user_annotation"]
+    check(len(window) == 1, f"trace: {len(window)} smoke:trace ranges")
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    cess = [e for e in ranges if e["name"].startswith("cess:")]
+    steps = sorted(e["name"] for e in ranges
+                   if e["name"].startswith("cess_stream#"))
+    check(len(cess) == sum(engine_batches.values()),
+          f"trace: {len(cess)} cess:<op> ranges for the engine's "
+          f"{engine_batches} batches")
+    check(len(steps) == stream_batches == len(set(steps)),
+          f"trace: {len(steps)} cess_stream#<n> ranges for "
+          f"{stream_batches} stream batches")
+    return {"window": window[0], "all": ranges, "cess": cess, "steps": steps,
+            "engine_tids": {e["tid"] for e in cess}}
+
+
+def trace_report(events: list, ranges: dict, launches: dict) -> list:
+    """The device side of phase ``trace``'s window, checked and read:
+    each kernel's device events equal its wrapper's ``launches``; every
+    kernel launch on an engine thread (a launch call paired with its
+    device event by correlation id) inside a ``cess:<op>`` range. Returns the phase's lines: the counts and the busy and idle
+    share, the top device operations, the audit round's split and the
+    longest idle gaps."""
+    import collections
+
+    w = ranges["window"]
+    w0, w1, main_tid = w["ts"], w["ts"] + w["dur"], w["tid"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    check(kernels, "trace: the profiler recorded no device kernel")
+    by_corr = {e["args"]["correlation"]: e for e in device
+               if "correlation" in e.get("args", {})}
+    launch_of = [(e, by_corr[e["args"]["correlation"]]) for e in events
+                 if e.get("cat") in LAUNCH_CATS
+                 and e.get("args", {}).get("correlation") in by_corr]
+
+    def by_kernel(names):
+        return collections.Counter(m.group(1) for m in map(
+            TRACE_KERNEL.search, names) if m)
+
+    in_trace = by_kernel(e["name"] for e in kernels)
+    paired = by_kernel(d["name"] for _, d in launch_of)
+    for name, count in launches.items():
+        check(in_trace.get(name, 0) == count,
+              f"trace: {in_trace.get(name, 0)} {name} kernels in the trace, "
+              f"{count} launches counted by its wrapper")
+    check(all(launches[k] > 0 for k in ("gf_apply", "podr2_tag",
+                                        "prf_blocks", "gf_xor")),
+          f"trace: a kernel was not launched in the window: {launches}")
+    cess = ranges["cess"]
+    engine_launches = [e for e, d in launch_of if d["cat"] == "kernel"
+                       and e["tid"] in ranges["engine_tids"]]
+    outside = sum(not any(r["tid"] == e["tid"] and r["ts"] <= e["ts"]
+                          and e["ts"] + e["dur"] <= r["ts"] + r["dur"]
+                          for r in cess) for e in engine_launches)
+    check(engine_launches, "trace: no kernel launch on an engine thread")
+    check(outside == 0, f"trace: {outside} of {len(engine_launches)} kernel "
+          f"launches on engine threads lie outside every cess:<op> range")
+
+    # busy and idle share over the window
+    busy = merged((e["ts"], e["ts"] + e["dur"]) for e in device)
+    win = w1 - w0
+    busy_us = covered(busy, w0, w1)
+    top = collections.defaultdict(lambda: [0.0, 0])
+    for e in device:
+        if w0 <= e["ts"] <= w1:
+            top[op_name(e["name"])][0] += e["dur"]
+            top[op_name(e["name"])][1] += 1
+
+    # the audit round: prove's op chain, prf_blocks, the host around them
+    def one(name):
+        found = [e for e in ranges["all"] if e["name"] == name
+                 and e["tid"] == main_tid]
+        check(len(found) == 1, f"trace: {len(found)} {name} ranges")
+        return found[0]["ts"], found[0]["ts"] + found[0]["dur"]
+
+    def launched_in(lo, hi):
+        return [d for e, d in launch_of if e["tid"] == main_tid
+                and lo <= e["ts"] <= hi]
+
+    a0, a1 = one("smoke:audit")
+    p0, p1 = one("smoke:prove_aggregate")
+    step_ms = {}
+    for name in ("gen_challenge", "aggregate_coeffs", "prove_aggregate",
+                 "verify_aggregate"):
+        lo, hi = one(f"smoke:{name}")
+        step_ms[name] = (hi - lo) / 1e3
+    in_audit = [e for e in events if e["tid"] == main_tid
+                and a0 <= e["ts"] <= a1]
+    host_ops, end = [], -1.0
+    for e in sorted((e for e in in_audit if e.get("cat") == "cpu_op"),
+                    key=lambda e: e["ts"]):
+        if e["ts"] >= end:                     # outermost operators only
+            host_ops.append(e)
+            end = e["ts"] + e["dur"]
+    calls = collections.defaultdict(lambda: [0.0, 0])
+    for e in in_audit:
+        if e.get("cat") in LAUNCH_CATS:
+            calls[e["name"]][0] += e["dur"]
+            calls[e["name"]][1] += 1
+    audit_dev = launched_in(a0, a1)
+    prove_dev = launched_in(p0, p1)
+    prf_dev = [d for d in audit_dev if "prf_blocks_kernel" in d["name"]]
+    prove_us = sum(d["dur"] for d in prove_dev)
+    prf_us = sum(d["dur"] for d in prf_dev)
+    other_us = sum(d["dur"] for d in audit_dev) - prove_us - prf_us
+    audit_busy = covered(merged((d["ts"], d["ts"] + d["dur"])
+                                for d in audit_dev), a0, a1)
+    chain = collections.Counter()
+    for d in prove_dev:
+        chain[op_name(d["name"], 40)] += d["dur"]
+
+    # the longest idle gaps and the host range each fell in
+    gaps, last = [], w0
+    for s, e in busy:
+        if s > last:
+            gaps.append((last, min(s, w1)))
+        last = max(last, e)
+    if last < w1:
+        gaps.append((last, w1))
+    host = [e for e in events if e["tid"] == main_tid
+            and e.get("cat") in ("cpu_op", "user_annotation")]
+
+    def host_in(g0, g1):
+        mid = (g0 + g1) / 2
+        inner = [e for e in host if e["ts"] <= mid <= e["ts"] + e["dur"]]
+        return min(inner, key=lambda e: e["dur"])["name"] if inner else "-"
+
+    def ms(us):
+        return f"{us / 1e3:.3f}"
+
+    def listing(items):
+        return ", ".join(f"{k} {ms(v[0])} ms x{v[1]}" for k, v in items)
+
+    return [
+        f"window {ms(win)} ms; kernels in the trace {dict(in_trace)} = the "
+        f"wrappers' launches {launches}, their launch calls paired by "
+        f"correlation id {dict(paired)}; {len(engine_launches)} kernel "
+        f"launches on engine threads, all inside a cess:<op> range; device "
+        f"busy {ms(busy_us)} ms = {busy_us / win:.1%} of the window, idle "
+        f"{1 - busy_us / win:.1%} (the union of {len(device)} kernel, copy "
+        f"and set intervals)",
+        "trace top device ops: " + listing(sorted(
+            top.items(), key=lambda kv: -kv[1][0])[:8]),
+        f"trace audit round: {ms(a1 - a0)} ms on the host clock = device "
+        f"busy {ms(audit_busy)} ms + host only {ms(a1 - a0 - audit_busy)} "
+        f"ms; prove_aggregate's op chain {ms(prove_us)} ms of device time in "
+        f"{len(prove_dev)} operations ("
+        + ", ".join(f"{k} {ms(v)}" for k, v in chain.most_common(4))
+        + f") within its {ms(p1 - p0)} ms range; prf_blocks {ms(prf_us)} ms "
+        f"({len(prf_dev)} launch); the rest of the round's device work "
+        f"{ms(other_us)} ms; the host's steps (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+        + f"; {len(host_ops)} outermost aten operators "
+        f"({ms(sum(e['dur'] for e in host_ops))} ms); runtime calls "
+        + listing(sorted(calls.items(), key=lambda kv: -kv[1][0])[:4]),
+        "trace idle gaps: " + "; ".join(
+            f"{ms(g1 - g0)} ms at +{ms(g0 - w0)} in {host_in(g0, g1)}"
+            for g0, g1 in sorted(gaps, key=lambda g: g[0] - g[1])[:5]),
+    ]
+
 def native_phase(dev, data, tab, tag: str) -> str:
     """The C++ host codec (``ops/rs_native.py``) beside the card: RS(4,8)
     parity of ``data`` [B, 4, n] (on the card) on 1 thread and on
@@ -4240,7 +4768,11 @@ def main(argv: list[str]) -> int:
     launches_sim = sim_phase(dev, zero_counts, counts, errs, tag)
     torch.cuda.empty_cache()
 
-    # 15. BASELINE geometry RS(4,8) ---------------------------------------
+    # 15. trace: the main path under torch.profiler, annotations armed ---
+    launches_trace = trace_phase(dev, zero_counts, counts, errs, tag)
+    torch.cuda.empty_cache()
+
+    # 16. BASELINE geometry RS(4,8) ---------------------------------------
     cfg8 = PipelineConfig(k=4, m=8)
     b8 = 8
     pipe8 = StoragePipeline(cfg8, device=dev)
@@ -4273,7 +4805,7 @@ def main(argv: list[str]) -> int:
     del out8, seg8, decoded
     torch.cuda.empty_cache()
 
-    # 16. the xor path: RS(4,8) under strategy "xor", audited and repaired -
+    # 17. the xor path: RS(4,8) under strategy "xor", audited and repaired -
     bx = 32
     cfgx = PipelineConfig(k=4, m=8, strategy="xor")
     nx = cfgx.fragment_size
@@ -4350,7 +4882,7 @@ def main(argv: list[str]) -> int:
     del outx, fragsx, segx, surv, rebuilt, acc, warm, lost, codecx
     torch.cuda.empty_cache()
 
-    # 17. known answer ------------------------------------------------------
+    # 18. known answer ------------------------------------------------------
     for strategy in (None, "xor"):
         digest, kat_ok = kat.run_port(dev, strategy)
         check(kat_ok, f"known-answer proof did not verify ({strategy})")
@@ -4359,7 +4891,7 @@ def main(argv: list[str]) -> int:
     print(f"phase kat: digest {digest} matches the TPU package's, dense and "
           f"xor")
 
-    # 18. kernel times at the main paths' shapes --------------------------
+    # 19. kernel times at the main paths' shapes --------------------------
     n = cfg.fragment_size
     data = rand_bytes((b, cfg.k, n), 8, dev)
     enc = torch.empty((b, rows, n), dtype=torch.uint8, device=dev)
@@ -4472,6 +5004,7 @@ def main(argv: list[str]) -> int:
             "launches_chain": launches_chain.get(name, 0),
             "launches_node": launches_node.get(name, 0),
             "launches_sim": launches_sim.get(name, 0),
+            "launches_trace": launches_trace.get(name, 0),
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
@@ -4506,7 +5039,7 @@ def main(argv: list[str]) -> int:
           f"{2 * flat_in.numel() / copy_ms / 1e9:.3f} TB/s read + written; "
           f"fill {flat_out.numel() / MIB:.0f} MiB {fill_ms:.4f} ms = "
           f"{flat_out.numel() / fill_ms / 1e9:.3f} TB/s (device times) {tag}")
-    # 19. native: the C++ host codec beside the card on the same bytes --
+    # 20. native: the C++ host codec beside the card on the same bytes --
     native_phase(dev, datax, tab48, tag)
     if args.parent:
         parent_turns(args.parent, [

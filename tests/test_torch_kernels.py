@@ -201,7 +201,7 @@ def test_gf_xor_many_batch_rows(cuda_device):
 def test_warm_graphs_equal_cold(cuda_device, strategy):
     """A CUDA-graph warm reconstruct and warm fold replay to the bytes of
     the cold path, count a hit, and count their kernels as launched."""
-    codec = regen.RegenCodec(4, 8, cuda_device, strategy=strategy)
+    codec = regen.RegenCodec(4, 8, device=cuda_device, strategy=strategy)
     coded = codec.encode(rand((8, 4, 4096), seed=9).to(cuda_device))
     present, missing = (1, 3, 5, 9), (0,)
     surv = coded[:, list(present)]

@@ -235,7 +235,7 @@ def test_keys_and_ids():
     h = hashlib.sha256(b"frag").digest()
     np.testing.assert_array_equal(podr2.fragment_id_from_hash(h),
                                   jpodr2.fragment_id_from_hash(h))
-    ids = podr2.fragment_ids(np.array([1, (5 << 32) | 3]), "cpu")
+    ids = podr2.fragment_id_pairs(np.array([1, (5 << 32) | 3]), "cpu")
     assert ids.tolist() == [[1, 0], [3, 5]]
 
 

@@ -73,7 +73,7 @@ def keys(seed=21):
 
 
 def pool_engine(n=2, res=None, key=None, regen_codec=False):
-    codec = regen.RegenCodec(K, M, "cpu") if regen_codec \
+    codec = regen.RegenCodec(K, M, device="cpu") if regen_codec \
         else rs.make_codec(K, M, "cpu")
     audit = None
     if key is not None:

@@ -92,7 +92,7 @@ def test_host_folds_match_jax():
 @pytest.mark.parametrize("strategy", ["gather", "xor", "auto"])
 def test_regen_codec_matches_jax(strategy):
     k, m = 4, 8
-    port = regen.RegenCodec(k, m, "cpu", strategy=strategy)
+    port = regen.RegenCodec(k, m, device="cpu", strategy=strategy)
     ref = jregen.RegenCodec(k, m, strategy=strategy)
     data = rnd((3, k, 96), seed=21)
     coded = np.asarray(ref.encode(data))
@@ -118,7 +118,7 @@ def test_regen_codec_matches_jax(strategy):
 def test_symbol_chain_matches_jax(k, m):
     """k fold hops over the repair coefficients rebuild the lost row, in
     the port's batched fold and in the TPU package's host fold."""
-    port = regen.RegenCodec(k, m, "cpu", strategy="xor")
+    port = regen.RegenCodec(k, m, device="cpu", strategy="xor")
     data = rnd((2, k, 128), seed=k * 17 + m)
     coded = port.encode(data).numpy()
     present = tuple(range(1, k + 1))
@@ -135,7 +135,7 @@ def test_symbol_chain_matches_jax(k, m):
 
 def test_warm_fold_hits():
     """As tests/test_regen.py pins the TPU package's warm fold."""
-    codec = regen.RegenCodec(2, 1, "cpu")
+    codec = regen.RegenCodec(2, 1, device="cpu")
     pairs = rnd((2, 2, 64), 5)
     cold = codec.fold_symbol(pairs, 7)
     assert codec.warm_hits == 0
@@ -186,5 +186,5 @@ def test_make_codec_regen_gate():
             make_codec(2, 2, "regen")
     with pytest.raises(ValueError, match="unknown ErasureCodec backend"):
         make_codec(2, 2, "nope")
-    assert isinstance(regen.RegenCodec(2, 2, "cpu", strategy="xor"),
+    assert isinstance(regen.RegenCodec(2, 2, device="cpu", strategy="xor"),
                       regen.RegenCodec)

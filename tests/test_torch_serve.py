@@ -225,7 +225,7 @@ def test_stacked_classes_coalesce_like_jax(limbs):
 def test_repair_symbol_matches_jax_regen():
     from cess_tpu.ops import regen as jregen
 
-    codec = regen.RegenCodec(2, 1, "cpu")
+    codec = regen.RegenCodec(2, 1, device="cpu")
     eng = SubmissionEngine(codec=codec,
                            policy=AdmissionPolicy(max_delay=0.005))
     jeng = jserve.make_engine(2, 1, rs_backend="regen",
@@ -715,7 +715,7 @@ def test_warm_repair_fills_the_keys_op_repair_reads():
 
 
 def test_warm_repair_warms_the_regen_folds():
-    codec = regen.RegenCodec(2, 1, "cpu")
+    codec = regen.RegenCodec(2, 1, device="cpu")
     eng = SubmissionEngine(codec=codec,
                            policy=AdmissionPolicy(max_delay=0.005))
     try:

@@ -165,7 +165,7 @@ def test_repair_storm_witness_equal_with_the_port_pool(monkeypatch):
         assert not profile and regen_codec and lanes == 3
         cfg = world.pipeline.config
         eng = SubmissionEngine(
-            regen.RegenCodec(cfg.k, cfg.m, "cpu"),
+            regen.RegenCodec(cfg.k, cfg.m, device="cpu"),
             make_audit_backend(world.pipeline.podr2_key, "cpu"),
             resilience=ResilienceConfig(), pool=DevicePool(["cpu"] * lanes))
         built.append(eng)
