@@ -262,12 +262,12 @@ def main(argv=None) -> int:
                          "bench-anchored PerfWatchdog that "
                          "edge-triggers a perf-regression incident "
                          "when live windowed throughput drops below a "
-                         "guard fraction of the checked-in bench "
+                         "guard fraction of the baseline's "
                          "record. BASELINE is a bench_diff "
-                         "--baseline-out artifact (bare --profile "
-                         "scans ./BENCH_r*.json for the newest "
-                         "round; no record found = profiling without "
-                         "judging). Served via the cess_profileDump "
+                         "--baseline-out artifact measured on this "
+                         "hardware (bare --profile: profiling "
+                         "without judging, no watchdog). Served via "
+                         "the cess_profileDump "
                          "RPC and cess_profile_* gauges on GET "
                          "/metrics (render with tools/"
                          "profile_view.py). Requires --engine; "
@@ -872,13 +872,13 @@ def _make_cli_engine(args, spec):
     if profile_spec is not None:
         from ..obs import profile as obs_profile
 
-        # --profile=PATH: a bench_diff --baseline-out artifact; bare
-        # --profile: the newest checked-in BENCH_r*.json round. No
-        # record found = an unanchored plane (profiling without
-        # judging) — the ledgers still fill, the watchdog stays inert.
+        # --profile=PATH: a bench_diff --baseline-out artifact measured
+        # on this hardware; bare --profile: an unanchored plane
+        # (profiling without judging), since the checked-in
+        # BENCH_r*.json rounds are a TPU's numbers — the ledgers fill,
+        # the watchdog stays None.
         baseline = (obs_profile.load_baseline(profile_spec)
-                    if profile_spec
-                    else obs_profile.latest_bench_baseline())
+                    if profile_spec else None)
         profile = obs_profile.ProfilePlane(baseline=baseline)
     k = max(spec.fragment_count - 1, 1)      # reference RS(k, 1) shape
     # --pool = all local devices; --pool=N = the first N lanes

@@ -52,7 +52,6 @@ import hashlib
 import importlib
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -362,10 +361,14 @@ def _host_codec(k: int, m: int, regen_: bool, strategy: str | None,
 @dataclasses.dataclass
 class Upload:
     """What a gateway upload computes before its on-chain declaration.
-    ``seconds``: host clock of each stage; "encode" copies the segments to
-    the device and launches the encode, "fetch" waits for it and copies
-    the fragments out, "hash" derives identities and ids, "tag" ends with
-    the tags on the host."""
+    ``seconds``: host clock of each stage of ``UPLOAD_STAGES``, in order
+    and with nothing between them; "pad" cuts the file into zero-padded
+    segments, "encode" copies them to the device ("encode.h2d") and
+    enqueues the encode ("encode.launch"), "fetch" waits for it
+    ("fetch.wait", nothing to wait for on the CPU) and copies the
+    fragments out ("fetch.copy"), "hash" derives identities and ids,
+    "tag" ends with the tags on the host, "finish" hashes the file and
+    assembles the result. A stage's parts sum to it."""
 
     fragments: np.ndarray                  # [B, k+m, n] uint8
     tags: np.ndarray                       # [B, k+m, blocks, limbs] uint32
@@ -375,6 +378,12 @@ class Upload:
     file_hash: bytes
     fetches: int                           # device-to-host copies made
     seconds: dict[str, float]
+
+
+#: ``Upload.seconds``' keys in the order the stages run; ``<stage>.<part>``
+#: is a part of ``<stage>``
+UPLOAD_STAGES = ("pad", "encode", "encode.h2d", "encode.launch", "fetch",
+                 "fetch.wait", "fetch.copy", "hash", "tag", "finish")
 
 
 def _hash_all(blobs) -> list[bytes]:
@@ -391,39 +400,65 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     uint8 array) zero-padded into segments, encoded, every fragment
     hashed into its identity and id, and tagged from the fragments the
     encode left on the device (they are fetched to the host once and
-    never uploaded again). ``file``: the file name the span carries."""
+    never uploaded again). ``file``: the file name the span carries.
+    Each stage is a ``trace.stage`` named ``offchain.upload.<key>``: a
+    child span of ``offchain.upload`` under a tracer, a profiler range
+    while ``torch.profiler`` records."""
     cfg = pipeline.config
-    buf = np.frombuffer(data, dtype=np.uint8)
-    size = buf.size
-    pad = (-size) % cfg.segment_size
-    if pad:
-        buf = np.concatenate([buf, np.zeros(pad, np.uint8)])
-    segments = buf.reshape(-1, cfg.segment_size)
+    size = memoryview(data).nbytes
     rows = cfg.k + cfg.m
     named = {} if file is None else {"file": file}
+    seconds = dict.fromkeys(UPLOAD_STAGES, 0.0)
     with trace.span("offchain.upload", sys="offchain", **named,
-                    segments=segments.shape[0], size=size):
-        t0 = time.perf_counter()
-        handle = pipeline.encode_step(segments, tenant=tenant)
-        t1 = time.perf_counter()
-        frags = np.asarray(handle)
-        t2 = time.perf_counter()
-        hashes = _hash_all([row for seg in frags for row in seg]
-                           + list(segments))
-        frag_hashes = [tuple(hashes[i * rows:(i + 1) * rows])
-                       for i in range(segments.shape[0])]
-        ids = _ids(hashes[:frags.shape[0] * rows]).reshape(
-            frags.shape[0], rows, 2)
-        t3 = time.perf_counter()
-        tags = pipeline.tag_step(handle, ids, tenant=tenant)
-        t4 = time.perf_counter()
-        seconds = {"encode": t1 - t0, "fetch": t2 - t1, "hash": t3 - t2,
-                   "tag": t4 - t3}
-        file_hash = fragment_hash(b"".join(h for fs in frag_hashes
-                                           for h in fs))
-    return Upload(frags, tags, ids, frag_hashes,
-                  hashes[frags.shape[0] * rows:], file_hash,
-                  handle.fetches, seconds)
+                    segments=-(-size // cfg.segment_size), size=size):
+        with trace.stage("offchain.upload.pad", seconds, "pad"):
+            buf = np.frombuffer(data, dtype=np.uint8)
+            pad = (-size) % cfg.segment_size
+            if pad:
+                buf = np.concatenate([buf, np.zeros(pad, np.uint8)])
+            segments = buf.reshape(-1, cfg.segment_size)
+        with trace.stage("offchain.upload.encode", seconds):
+            with trace.stage("offchain.upload.encode.h2d", seconds,
+                             "encode.h2d"):
+                staged = _tensor(segments, pipeline.device, torch.uint8)
+            with trace.stage("offchain.upload.encode.launch", seconds,
+                             "encode.launch"):
+                handle = pipeline.encode_step(staged, tenant=tenant)
+                encoded = _recorded_event(pipeline.device)
+        with trace.stage("offchain.upload.fetch", seconds):
+            with trace.stage("offchain.upload.fetch.wait", seconds,
+                             "fetch.wait"):
+                if encoded is not None:
+                    encoded.synchronize()
+            with trace.stage("offchain.upload.fetch.copy", seconds,
+                             "fetch.copy"):
+                frags = np.asarray(handle)
+        with trace.stage("offchain.upload.hash", seconds, "hash"):
+            hashes = _hash_all([row for seg in frags for row in seg]
+                               + list(segments))
+            frag_hashes = [tuple(hashes[i * rows:(i + 1) * rows])
+                           for i in range(segments.shape[0])]
+            ids = _ids(hashes[:frags.shape[0] * rows]).reshape(
+                frags.shape[0], rows, 2)
+        with trace.stage("offchain.upload.tag", seconds, "tag"):
+            tags = pipeline.tag_step(handle, ids, tenant=tenant)
+        with trace.stage("offchain.upload.finish", seconds, "finish"):
+            file_hash = fragment_hash(b"".join(h for fs in frag_hashes
+                                               for h in fs))
+            up = Upload(frags, tags, ids, frag_hashes,
+                        hashes[frags.shape[0] * rows:], file_hash,
+                        handle.fetches, seconds)
+    return up
+
+
+def _recorded_event(device: torch.device):
+    """A CUDA event recorded on ``device``'s current stream (after the
+    work enqueued so far), or None on the CPU."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 # -- the miner's proof and the TEE's check ------------------------------------

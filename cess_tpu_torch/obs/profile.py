@@ -32,11 +32,12 @@ engine runs on. The loaders (:func:`parse_bench_record`,
 package's semantics so that records parse alike in both packages, but
 the ``BENCH_r*.json`` records of this repository were taken on a TPU and
 are no yardstick for a card: no path of the port calls
-:func:`latest_bench_baseline`, and a watchdog on the card is anchored
-only on a baseline measured on that card (``chip_smoke.py``'s phase
-``slo`` measures the engine's encode GiB/s over fault-free windows and
-anchors a second plane on it). Without a baseline the watchdog is
-``None``: profiling without judging.
+:func:`latest_bench_baseline` (the node's bare ``--profile`` builds an
+unanchored plane), and a watchdog on the card is anchored only on a
+baseline measured on that card (the node's ``--profile=PATH``;
+``chip_smoke.py``'s phase ``slo`` measures the engine's encode GiB/s over
+fault-free windows and anchors a second plane on it). Without a baseline
+the watchdog is ``None``: profiling without judging.
 
 Timings on the card. The engine's ``dispatch_s`` runs from the batch's
 start to its completion (the batch is synchronized before its futures

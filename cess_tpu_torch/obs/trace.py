@@ -40,6 +40,15 @@ dispatch in ``torch.profiler.record_function("cess:<op>")`` and each
 streamed batch's dispatch in ``record_function("cess_stream#<n>")``, so
 a ``torch.profiler`` trace taken during the run lines up with the
 framework's spans.
+
+Host stages. :class:`stage` clocks one stage of a host path into a dict
+of seconds (``Upload.seconds`` of ``node/offchain.upload_batch``) and,
+only while someone looks, makes it a child span of the current span (a
+tracer armed) and a ``torch.profiler`` range of the same name (the
+profiler recording), so the device trace names the idle gaps the stage
+leaves. :func:`profiler_range` is the one place where the port's
+program ranges enter the profiler: the stages, the engine's and the
+stream's annotations.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ import collections
 import contextlib
 import contextvars
 import os
+import sys
 import threading
 import time
 
@@ -427,3 +437,69 @@ def context() -> tuple[int, int] | None:
     if isinstance(sp, Span):
         return (sp.trace_id, sp.span_id)
     return (tracer.trace_id, 0)
+
+
+# -- host stages and profiler ranges ------------------------------------------
+def profiler_range(name: str):
+    """``torch.profiler.record_function(name)``: a range that a recording
+    ``torch.profiler`` shows as a ``user_annotation`` event. The port's
+    only call site of it."""
+    import torch
+
+    return torch.profiler.record_function(name)
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records: the flag torch keeps for
+    every profiler it starts. ``torch.autograd._profiler_enabled()`` reads
+    only the calling thread's state, which a profiler started for all
+    threads (``profile_all_threads``) leaves unset. False while torch is
+    not even loaded (this module imports none of it)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd.profiler._is_profiler_enabled
+
+
+class stage:
+    """``with stage(name, clocks, key):`` adds the ``perf_counter``
+    seconds of the block to ``clocks[key]``. A key ``<stage>.<part>``
+    adds them to ``clocks[<stage>]`` as well, so a stage opened with
+    ``key=None`` holds exactly the sum of its parts.
+
+    While the block runs, and only then: with a tracer armed, ``name`` is
+    a current child span of the current span; with ``torch.profiler``
+    recording, ``name`` is a profiler range. Off, the block costs two
+    clock reads and one profiler check: no span, no range. ``with`` gives
+    the span, or :data:`NOOP_SPAN`."""
+
+    __slots__ = ("name", "clocks", "key", "_t0", "_span", "_range")
+
+    def __init__(self, name: str, clocks: dict, key: str | None = None):
+        self.name = name
+        self.clocks = clocks
+        self.key = key
+        self._span = self._range = None
+
+    def __enter__(self):
+        tracer = _TRACER
+        if tracer is not None:
+            self._span = tracer.start(self.name, current=True)
+        if _profiling():
+            self._range = profiler_range(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return NOOP_SPAN if self._span is None else self._span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        dt = time.perf_counter() - self._t0
+        key, clocks = self.key, self.clocks
+        if key is not None:
+            clocks[key] = clocks.get(key, 0.0) + dt
+            dot = key.rfind(".")
+            if dot > 0:
+                parent = key[:dot]
+                clocks[parent] = clocks.get(parent, 0.0) + dt
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if self._span is not None:
+            self._span.__exit__(exc_type, exc, tb)
+        return False

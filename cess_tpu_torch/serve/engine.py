@@ -1107,7 +1107,7 @@ class SubmissionEngine:
         trace lines up with the framework's spans."""
         if tracer is None or not tracer.device_annotations:
             return contextlib.nullcontext()
-        return torch.profiler.record_function(f"cess:{op}")
+        return trace.profiler_range(f"cess:{op}")
 
     def _wait_ready(self, batch: list[_Request], dev: torch.device) -> None:
         """The batch's stream on ``dev`` waits on each CUDA member's

@@ -270,7 +270,7 @@ class StreamingIngest:
         ``torch.profiler.record_function("cess_stream#<step>")``."""
         if tracer is None or not tracer.device_annotations:
             return contextlib.nullcontext()
-        return torch.profiler.record_function(f"cess_stream#{step}")
+        return trace.profiler_range(f"cess_stream#{step}")
 
     def _staging(self, dev: torch.device, seg: int):
         """The ``depth`` device buffers and the copy stream, made at

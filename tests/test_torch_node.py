@@ -260,6 +260,42 @@ def test_cli_engine_cpu_serves_its_stats():
         eng.close()
 
 
+@pytest.mark.parametrize("spec", ["", "fixture"])
+def test_cli_bare_profile_leaves_the_watchdog_unanchored(tmp_path,
+                                                         monkeypatch, spec):
+    """A bare ``--profile`` builds an unanchored plane even beside a
+    ``BENCH_r*.json`` (a TPU's numbers): the watchdog stays None.
+    ``--profile=PATH`` still anchors it on that baseline."""
+    import importlib
+    import json
+    import types
+
+    cli = importlib.import_module(f"{tp.PORT}.node.cli")
+    cs = importlib.import_module(f"{tp.PORT}.node.chain_spec")
+    (tmp_path / "BENCH_r05.json").write_text(json.dumps(
+        {"tail": '{"metric": "rs_4p8_encode_GiBps_per_chip", '
+                 '"value": 9.5}\n'}))
+    fixture = tmp_path / "baseline.json"
+    fixture.write_text(json.dumps(
+        {"metrics": {"stream_encode_tag_GiBps": {"value": 1.5}}}))
+    monkeypatch.chdir(tmp_path)
+    prof = importlib.import_module(f"{tp.PORT}.obs.profile")
+    assert prof.latest_bench_baseline() == {
+        "rs_4p8_encode_GiBps_per_chip": 9.5}
+    args = types.SimpleNamespace(engine="cpu", resilience="off",
+                                 profile=str(fixture) if spec else "")
+    eng = cli._make_cli_engine(args, cs.dev_spec())
+    try:
+        assert eng.profile is not None
+        if spec:
+            assert eng.profile.watchdog.snapshot()["baseline"] == {
+                "stream_encode_tag_GiBps": 1.5}
+        else:
+            assert eng.profile.watchdog is None
+    finally:
+        eng.close()
+
+
 def test_cli_help_lists_the_reference_surface(capsys):
     """The port's ``--help`` lists every subcommand and flag of the
     reference's parser (its usage, prog name aside), with ``--engine``

@@ -297,3 +297,123 @@ def test_engine_chaos_witness_matches_reference():
     degraded = [s for p in rec.pinned() for s in p["spans"]
                 if s["name"] == "device.encode" and s["attrs"]["degraded"]]
     assert all(s["attrs"]["backend"] == "cpu-fallback" for s in degraded)
+
+
+# -- host stages and the profiler's one call site -------------------------------
+def counted_record_function(monkeypatch):
+    """Count every ``torch.profiler.record_function`` made from now on."""
+    import torch
+
+    made = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args, **kwargs):
+        made.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    return made
+
+
+def counted_spans(monkeypatch):
+    """Count every ``Span`` made from now on."""
+    made = []
+    real = trace.Span.__init__
+
+    def counting(self, *args, **kwargs):
+        made.append(args[1])
+        real(self, *args, **kwargs)
+
+    monkeypatch.setattr(trace.Span, "__init__", counting)
+    return made
+
+
+def test_stage_off_opens_no_span_and_no_range(monkeypatch):
+    made = counted_record_function(monkeypatch)
+    spans = counted_spans(monkeypatch)
+    trace.disarm()
+    clocks = {}
+    st = trace.stage("host.step.part", clocks, "step.part")
+    with st as sp:
+        assert sp is trace.NOOP_SPAN
+        assert st._span is None and st._range is None
+    assert not hasattr(st, "__dict__")
+    assert made == [] and spans == []
+    assert set(clocks) == {"step", "step.part"}
+    assert clocks["step"] == clocks["step.part"] > 0
+
+
+def test_stage_parts_sum_to_the_stage_and_errors_pass():
+    clocks = {}
+    with trace.stage("s", clocks):
+        with trace.stage("s.a", clocks, "s.a"):
+            pass
+        with trace.stage("s.b", clocks, "s.b"):
+            pass
+    with pytest.raises(ValueError):
+        with trace.stage("t", clocks, "t"):
+            raise ValueError("kept")
+    assert list(clocks) == ["s.a", "s", "s.b", "t"]
+    assert clocks["s"] == clocks["s.a"] + clocks["s.b"]
+    assert clocks["t"] > 0
+
+
+def test_stage_under_a_tracer_is_a_current_child_span():
+    tracer = trace.Tracer()
+    clocks = {}
+    with trace.armed(tracer):
+        with trace.span("root", sys="x") as root:
+            with trace.stage("root.a", clocks, "a") as a:
+                assert isinstance(a, trace.Span)
+                assert trace.current_span() is a
+                with trace.stage("root.a.b", clocks, "a.b") as b:
+                    assert b.parent_id == a.span_id
+            assert trace.current_span() is root
+    spans = {s["name"]: s for s in tracer.finished()}
+    assert spans["root.a"]["parent_id"] == spans["root"]["span_id"]
+    assert spans["root.a.b"]["parent_id"] == spans["root.a"]["span_id"]
+    assert clocks["a"] >= clocks["a.b"] > 0
+
+
+def test_stage_under_the_profiler_opens_one_range(monkeypatch):
+    import torch
+
+    made = counted_record_function(monkeypatch)
+    clocks = {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace.stage("host.outer", clocks):
+            with trace.stage("host.outer.inner", clocks, "outer.inner"):
+                torch.ones(4).add_(1)
+    assert made == ["host.outer", "host.outer.inner"]
+    ranges = {e.name: e.time_range for e in prof.events()
+              if e.name.startswith("host.")}
+    assert set(ranges) == {"host.outer", "host.outer.inner"}
+    outer, inner = ranges["host.outer"], ranges["host.outer.inner"]
+    assert outer.start <= inner.start and inner.end <= outer.end
+
+
+@pytest.mark.parametrize("armed", [True, False])
+def test_engine_and_stream_annotations_enter_through_profiler_range(
+        monkeypatch, armed):
+    """The engine's batch dispatch and the stream's batch dispatch open
+    their ranges through ``trace.profiler_range``, as armed as before."""
+    from cess_tpu_torch.models.pipeline import PipelineConfig, StoragePipeline
+    from cess_tpu_torch.serve.stream import StreamingIngest
+
+    opened = []
+    real = trace.profiler_range
+    monkeypatch.setattr(trace, "profiler_range",
+                        lambda name: opened.append(name) or real(name))
+    tracer = trace.Tracer(device_annotations=armed)
+    eng = make_engine(K, M, rs_backend="cpu", tracer=tracer)
+    try:
+        eng.submit_encode(rnd((1, K, 128))).result(timeout=30)
+    finally:
+        eng.close()
+    pipe = StoragePipeline(PipelineConfig(k=K, m=M, segment_size=8192),
+                           device="cpu")
+    with trace.armed(tracer):
+        StreamingIngest(pipe, 2).ingest(rnd((3, 8192), 4))
+    assert opened == (["cess:encode", "cess_stream#0", "cess_stream#1"]
+                      if armed else [])

@@ -9,6 +9,7 @@ verdicts are protocol facts. ``HostPodr2`` must also hand back the dtypes
 compared; the whole agents on the port run in tests/test_torch_sim.py.
 The card's run of the same steps is tests/test_torch_agents_card.py.
 """
+import time
 import types
 
 import jax
@@ -218,7 +219,106 @@ def test_upload_batch_matches_gateway_upload(routed):
             assert np.array_equal(up.tags[i, j], gw.tag_store[h])
             assert np.array_equal(up.ids[i, j], jpodr2.fragment_id_from_hash(h))
     assert up.fetches == 1 and pipe.fragment_uploads == 0
-    assert set(up.seconds) == {"encode", "fetch", "hash", "tag"}
+    assert set(up.seconds) == {"pad", "encode", "encode.h2d",
+                               "encode.launch", "fetch", "fetch.wait",
+                               "fetch.copy", "hash", "tag", "finish"}
+
+
+TOP_STAGES = ("pad", "encode", "fetch", "hash", "tag", "finish")
+STAGE_RANGES = ["offchain.upload." + k for k in offchain.UPLOAD_STAGES]
+
+
+def test_upload_stage_parts_sum_to_their_stage():
+    _, pipe = agent_pipelines()
+    up = offchain.upload_batch(pipe, rnd(2 * SEG + 5, 41).tobytes())
+    s = up.seconds
+    assert list(s) == list(offchain.UPLOAD_STAGES)
+    assert s["encode"] == s["encode.h2d"] + s["encode.launch"]
+    assert s["fetch"] == s["fetch.wait"] + s["fetch.copy"]
+    assert all(v >= 0 for v in s.values()) and s["hash"] > 0
+    parts = [k for k in s if "." in k]
+    assert {k.split(".")[0] for k in parts} == {"encode", "fetch"}
+    assert [k for k in s if "." not in k] == list(TOP_STAGES)
+
+
+def test_upload_stages_cover_the_wall():
+    """The top-level stages leave almost nothing of an upload unclocked:
+    the best of three calls, timed around ``upload_batch``."""
+    _, pipe = agent_pipelines()
+    data = rnd(3 * SEG - 1000, 42)
+    shares = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        up = offchain.upload_batch(pipe, data)
+        wall = time.perf_counter() - t0
+        shares.append(sum(up.seconds[k] for k in TOP_STAGES) / wall)
+    assert 0.95 <= max(shares) <= 1.0
+
+
+@pytest.mark.parametrize("all_threads", [False, True])
+def test_upload_opens_one_profiler_range_per_stage_in_order(all_threads):
+    """Under a profiler of this thread, and under one of every thread
+    (``profile_all_threads``, the benchmark's slice), whose state the
+    calling thread's ``torch.autograd._profiler_enabled()`` misses."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    _, pipe = agent_pipelines()
+    config = {"experimental_config": _ExperimentalConfig(
+        profile_all_threads=True)} if all_threads else {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            **config) as prof:
+        offchain.upload_batch(pipe, rnd(SEG + 7, 43).tobytes())
+    ranges = sorted(((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.name.startswith("offchain.upload.")))
+    assert [n for _, _, n in ranges] == STAGE_RANGES
+    span = {n: (t0, t1) for t0, t1, n in ranges}
+    for name, (t0, t1) in span.items():
+        parent = name.rsplit(".", 1)[0]
+        if parent in span:                  # a part inside its stage
+            assert span[parent][0] <= t0 and t1 <= span[parent][1]
+    top = [span["offchain.upload." + k] for k in TOP_STAGES]
+    assert all(a[1] <= b[0] for a, b in zip(top, top[1:]))
+
+
+def test_upload_stages_are_child_spans_of_the_upload():
+    _, pipe = agent_pipelines()
+    tracer = trace.Tracer()
+    with trace.armed(tracer):
+        offchain.upload_batch(pipe, rnd(SEG, 44).tobytes(), file="f.bin")
+    spans = {s["name"]: s for s in tracer.finished()}
+    upload = spans["offchain.upload"]
+    assert upload["attrs"] == {"file": "f.bin", "segments": 1, "size": SEG}
+    for name in STAGE_RANGES:
+        parent = name.rsplit(".", 1)[0]
+        want = upload if parent == "offchain.upload" else spans[parent]
+        assert spans[name]["parent_id"] == want["span_id"], name
+    assert spans["pipeline.encode"]["parent_id"] == \
+        spans["offchain.upload.encode.launch"]["span_id"]
+
+
+def test_upload_off_opens_no_range_and_no_span(monkeypatch):
+    made = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name, *a: made.append(name) or real(name, *a))
+    spans = []
+    real_init = trace.Span.__init__
+
+    def counting(self, *args, **kwargs):
+        spans.append(args[1])
+        real_init(self, *args, **kwargs)
+
+    monkeypatch.setattr(trace.Span, "__init__", counting)
+    trace.disarm()
+    _, pipe = agent_pipelines()
+    up = offchain.upload_batch(pipe, rnd(SEG, 45).tobytes())
+    assert made == [] and spans == [] and up.fetches == 1
+    # the same counters see an armed tracer's spans
+    with trace.armed(trace.Tracer()):
+        offchain.upload_batch(pipe, rnd(SEG, 45).tobytes())
+    assert made == [] and len(spans) == 13
 
 
 def test_device_fragments_handle_fetches_once():
