@@ -99,6 +99,15 @@ def _tensor(x, device: torch.device, dtype: torch.dtype | None = None
     return x.to(device) if dtype is None else x.to(device, dtype)
 
 
+def _host_allocs(device: torch.device) -> int:
+    """The page-locked blocks torch's caching host allocator has made so
+    far (``num_host_alloc``): process-wide, so another thread's
+    allocations count too. 0 off CUDA, where nothing is page-locked."""
+    if device.type != "cuda":
+        return 0
+    return int(torch.cuda.host_memory_stats()["num_host_alloc"])
+
+
 def _field(x: torch.Tensor) -> np.ndarray:
     """Field elements (int32 tensor, every value below p) as host uint32,
     the dtype the TPU package's results have on the host."""
@@ -195,7 +204,12 @@ class DeviceFragments:
     The handle keeps the tensor alive for ``AgentPipeline.tag_step``,
     which reads it where it lies. ``np.asarray(handle)`` fetches it into
     host memory once and hands back that read-only copy ever after;
-    ``fetches`` counts the copies made (at most 1)."""
+    ``fetches`` counts the copies made (at most 1). From a CUDA device
+    the copy lands in page-locked memory from torch's caching host
+    allocator: a block freed earlier in the same power-of-two size class,
+    when the cache holds one. The array holds the block, which goes back
+    to the cache only when the last view of it is dropped, so each
+    caller owns what it keeps."""
 
     dtype = np.dtype(np.uint8)
 
@@ -212,7 +226,13 @@ class DeviceFragments:
     def numpy(self) -> np.ndarray:
         with self._lock:
             if self._host is None:
-                self._host = self.tensor.cpu().numpy()
+                if self.tensor.device.type == "cuda":
+                    host = torch.empty(self.shape, dtype=torch.uint8,
+                                       pin_memory=True)
+                    host.copy_(self.tensor)
+                else:
+                    host = self.tensor.cpu()
+                self._host = host.numpy()
                 self._host.flags.writeable = False
                 self.fetches += 1
             return self._host
@@ -229,7 +249,14 @@ class AgentPipeline:
     ``podr2_key``, a settable ``engine`` (refused when its geometry or key
     differs, as ``StoragePipeline`` refuses it), and the two steps with
     host arrays in and out. ``fragment_uploads`` counts the ``tag_step``
-    calls whose fragments had to be copied to the device."""
+    calls whose fragments had to be copied to the device.
+    ``staged_buffers`` counts the page-locked host buffers its uploads
+    took on a CUDA device (``upload_batch``: the fragments, and the
+    segments where the host copies them), ``staged_allocs`` the
+    page-locked allocations made during those uploads (the rise of
+    ``num_host_alloc``, process-wide); the host cache's hit share is
+    ``1 - staged_allocs / staged_buffers`` while uploads run one at a
+    time (uploads side by side each count the other's allocations)."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  podr2_key: podr2.Podr2Key | None = None, engine=None, *,
@@ -237,6 +264,7 @@ class AgentPipeline:
         self.pipeline = StoragePipeline(config, podr2_key=podr2_key,
                                         device=device, engine=engine)
         self.fragment_uploads = 0
+        self.staged_buffers = self.staged_allocs = 0
         self._lock = threading.Lock()
 
     @property
@@ -361,6 +389,8 @@ def _host_codec(k: int, m: int, regen_: bool, strategy: str | None,
 @dataclasses.dataclass
 class Upload:
     """What a gateway upload computes before its on-chain declaration.
+    ``fragments`` is the caller's own array (in page-locked memory when
+    the encode ran on a CUDA device).
     ``seconds``: host clock of each stage of ``UPLOAD_STAGES``, in order
     and with nothing between them; "pad" cuts the file into zero-padded
     segments, "encode" copies them to the device ("encode.h2d") and
@@ -403,27 +433,48 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     never uploaded again). ``file``: the file name the span carries.
     Each stage is a ``trace.stage`` named ``offchain.upload.<key>``: a
     child span of ``offchain.upload`` under a tracer, a profiler range
-    while ``torch.profiler`` records."""
+    while ``torch.profiler`` records.
+
+    On a CUDA device the host side of both copies is page-locked memory
+    from torch's caching host allocator: the fetched fragments, and the
+    segments wherever the host copies them anyway (a file that needs a
+    pad, or read-only input such as ``bytes``); a writable array of
+    whole segments is copied in from the caller's memory as it is. The
+    span carries ``pinned`` (whether it was so) and ``host_allocs``: the
+    page-locked allocations made during the call, process-wide, 0 when
+    the host cache served every buffer."""
     cfg = pipeline.config
     size = memoryview(data).nbytes
     rows = cfg.k + cfg.m
+    nseg = -(-size // cfg.segment_size)
+    pinned = pipeline.device.type == "cuda"
+    allocs_before = _host_allocs(pipeline.device)
     named = {} if file is None else {"file": file}
     seconds = dict.fromkeys(UPLOAD_STAGES, 0.0)
     with trace.span("offchain.upload", sys="offchain", **named,
-                    segments=-(-size // cfg.segment_size), size=size):
+                    segments=nseg, size=size) as span:
         with trace.stage("offchain.upload.pad", seconds, "pad"):
             buf = np.frombuffer(data, dtype=np.uint8)
             pad = (-size) % cfg.segment_size
-            if pad:
-                buf = np.concatenate([buf, np.zeros(pad, np.uint8)])
-            segments = buf.reshape(-1, cfg.segment_size)
+            # a file that needs a pad, or bytes numpy cannot lend
+            # writable, is copied on the host in any case: page-locked
+            # on a CUDA device
+            staged = bool(pad) or not buf.flags.writeable
+            if staged:
+                src = torch.empty((nseg, cfg.segment_size),
+                                  dtype=torch.uint8, pin_memory=pinned)
+                segments = src.numpy()
+                segments.reshape(-1)[:size] = buf
+                segments.reshape(-1)[size:] = 0
+            else:
+                src = segments = buf.reshape(-1, cfg.segment_size)
         with trace.stage("offchain.upload.encode", seconds):
             with trace.stage("offchain.upload.encode.h2d", seconds,
                              "encode.h2d"):
-                staged = _tensor(segments, pipeline.device, torch.uint8)
+                on_device = _tensor(src, pipeline.device, torch.uint8)
             with trace.stage("offchain.upload.encode.launch", seconds,
                              "encode.launch"):
-                handle = pipeline.encode_step(staged, tenant=tenant)
+                handle = pipeline.encode_step(on_device, tenant=tenant)
                 encoded = _recorded_event(pipeline.device)
         with trace.stage("offchain.upload.fetch", seconds):
             with trace.stage("offchain.upload.fetch.wait", seconds,
@@ -448,6 +499,12 @@ def upload_batch(pipeline: AgentPipeline, data, *,
             up = Upload(frags, tags, ids, frag_hashes,
                         hashes[frags.shape[0] * rows:], file_hash,
                         handle.fetches, seconds)
+            allocs = _host_allocs(pipeline.device) - allocs_before
+        span.set(pinned=pinned, host_allocs=allocs)
+    if pinned:
+        with pipeline._lock:
+            pipeline.staged_buffers += 2 if staged else 1
+            pipeline.staged_allocs += allocs
     return up
 
 
@@ -728,6 +785,7 @@ def _agent_pipeline(pipeline) -> AgentPipeline:
     wrapped = AgentPipeline.__new__(AgentPipeline)
     wrapped.pipeline = pipeline
     wrapped.fragment_uploads = 0
+    wrapped.staged_buffers = wrapped.staged_allocs = 0
     wrapped._lock = threading.Lock()
     return wrapped
 

@@ -11,12 +11,15 @@ so it runs where only the port is installed:
 The CPU tests of the same code, against the JAX package, are
 ``test_torch_offchain.py`` and ``test_torch_sim.py``.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from cess_tpu_torch.models.pipeline import PipelineConfig
 from cess_tpu_torch.node import hashing, offchain
+from cess_tpu_torch.obs import trace
 from cess_tpu_torch.ops import podr2, podr2_kernel, rs_kernel
 from cess_tpu_torch.serve import AdmissionPolicy, make_engine
 
@@ -94,3 +97,110 @@ def test_upload_prove_verify_on_the_card(cuda_device, routed):
     finally:
         if eng is not None:
             eng.close()
+
+
+# -- the upload's host buffers in page-locked memory --------------------------
+def page_locked(a: np.ndarray) -> bool:
+    """Whether a host array lies in page-locked memory, asked of CUDA by
+    its address."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)     # read-only array
+        return torch.from_numpy(a).is_pinned()
+
+
+def traced_upload(pipe, data):
+    """(``upload_batch``'s result, its ``offchain.upload`` span's attrs)."""
+    tracer = trace.Tracer()
+    with trace.armed(tracer):
+        up = offchain.upload_batch(pipe, data)
+    (span,) = [s for s in tracer.finished() if s["name"] == "offchain.upload"]
+    return up, span["attrs"]
+
+
+def pipelines(device):
+    key = podr2.Podr2Key.generate(7, device=device)
+    cfg = PipelineConfig(segment_size=SEG)
+    return (offchain.AgentPipeline(cfg, podr2_key=key, device=device),
+            offchain.AgentPipeline(cfg, podr2_key=key.to("cpu"),
+                                   device="cpu"))
+
+
+def assert_same_upload(got, want):
+    assert np.array_equal(got.fragments, want.fragments)
+    assert np.array_equal(got.tags, want.tags)
+    assert np.array_equal(got.ids, want.ids)
+    assert got.fragment_hashes == want.fragment_hashes
+    assert got.segment_hashes == want.segment_hashes
+    assert got.file_hash == want.file_hash and got.fetches == 1
+
+
+# (size, input as bytes, segments staged): the host copies the segments
+# of a padded file and of read-only bytes (the gateway's input), not of a
+# writable array of whole segments
+UPLOAD_INPUTS = [(3 * SEG - 1000, False, True), (4 * SEG, False, False),
+                 (4 * SEG, True, True)]
+UPLOAD_IDS = ["padded", "whole-segments", "whole-segments-bytes"]
+
+
+def upload_input(rng, size, as_bytes):
+    data = rng.integers(0, 256, size, np.uint8)
+    return data.tobytes() if as_bytes else data
+
+
+@pytest.mark.parametrize("size,as_bytes,staged", UPLOAD_INPUTS,
+                         ids=UPLOAD_IDS)
+def test_upload_stages_in_page_locked_memory_and_matches_the_cpu(
+        cuda_device, size, as_bytes, staged):
+    pipe, cpu = pipelines(cuda_device)
+    data = upload_input(np.random.default_rng(11), size, as_bytes)
+    up, attrs = traced_upload(pipe, data)
+    assert_same_upload(up, offchain.upload_batch(cpu, data))
+    assert page_locked(up.fragments) and not up.fragments.flags.writeable
+    assert attrs["pinned"] is True and attrs["host_allocs"] >= 0
+    assert pipe.staged_buffers == (2 if staged else 1)
+    assert pipe.staged_allocs == attrs["host_allocs"]
+
+
+@pytest.mark.parametrize("size,as_bytes,staged", UPLOAD_INPUTS,
+                         ids=UPLOAD_IDS)
+def test_repeat_upload_of_a_size_takes_no_new_page_locked_block(
+        cuda_device, size, as_bytes, staged):
+    pipe, _ = pipelines(cuda_device)
+    rng = np.random.default_rng(12)
+    first, _ = traced_upload(pipe, upload_input(rng, size, as_bytes))
+    del first                               # its blocks go back to the cache
+    up, attrs = traced_upload(pipe, upload_input(rng, size, as_bytes))
+    assert attrs["host_allocs"] == 0 and page_locked(up.fragments)
+    assert pipe.staged_buffers == (4 if staged else 2)
+
+
+def test_kept_upload_keeps_its_bytes_through_later_uploads(cuda_device):
+    pipe, cpu = pipelines(cuda_device)
+    rng = np.random.default_rng(13)
+    size = 2 * SEG - 77
+    data = rng.integers(0, 256, size, np.uint8)
+    kept = offchain.upload_batch(pipe, data)
+    frags, tags = kept.fragments.copy(), kept.tags.copy()
+    for _ in range(3):
+        other = offchain.upload_batch(
+            pipe, rng.integers(0, 256, size, np.uint8))
+        assert not np.shares_memory(other.fragments, kept.fragments)
+        assert not np.array_equal(other.fragments, frags)
+        del other
+    assert np.array_equal(kept.fragments, frags)
+    assert np.array_equal(kept.tags, tags)
+    assert_same_upload(kept, offchain.upload_batch(cpu, data))
+
+
+def test_padded_tail_is_zero_in_a_block_that_held_another_file(cuda_device):
+    """A larger file fills the cached segments block with nonzero bytes;
+    a smaller one of the same segment count reuses it (no allocation)
+    and still hashes, encodes and tags a zero tail."""
+    pipe, cpu = pipelines(cuda_device)
+    rng = np.random.default_rng(14)
+    big = rng.integers(1, 256, 2 * SEG - 3, np.uint8)
+    small = rng.integers(0, 256, SEG + 5, np.uint8)
+    offchain.upload_batch(pipe, big)        # dropped: its blocks are free
+    up, attrs = traced_upload(pipe, small)
+    assert attrs["host_allocs"] == 0
+    assert_same_upload(up, offchain.upload_batch(cpu, small))

@@ -289,7 +289,8 @@ def test_upload_stages_are_child_spans_of_the_upload():
         offchain.upload_batch(pipe, rnd(SEG, 44).tobytes(), file="f.bin")
     spans = {s["name"]: s for s in tracer.finished()}
     upload = spans["offchain.upload"]
-    assert upload["attrs"] == {"file": "f.bin", "segments": 1, "size": SEG}
+    assert upload["attrs"] == {"file": "f.bin", "segments": 1, "size": SEG,
+                               "pinned": False, "host_allocs": 0}
     for name in STAGE_RANGES:
         parent = name.rsplit(".", 1)[0]
         want = upload if parent == "offchain.upload" else spans[parent]
@@ -319,6 +320,59 @@ def test_upload_off_opens_no_range_and_no_span(monkeypatch):
     with trace.armed(trace.Tracer()):
         offchain.upload_batch(pipe, rnd(SEG, 45).tobytes())
     assert made == [] and len(spans) == 13
+
+
+@pytest.mark.parametrize("size", [SEG, 3 * SEG - 1000])
+def test_upload_on_the_cpu_stages_nothing_page_locked(size):
+    """Whole segments and a padded file alike: the span says so."""
+    _, pipe = agent_pipelines()
+    tracer = trace.Tracer()
+    with trace.armed(tracer):
+        offchain.upload_batch(pipe, rnd(size, 46).tobytes())
+    (upload,) = [s for s in tracer.finished()
+                 if s["name"] == "offchain.upload"]
+    assert upload["attrs"]["pinned"] is False
+    assert upload["attrs"]["host_allocs"] == 0
+
+
+def test_kept_uploads_on_the_cpu_share_no_memory():
+    _, pipe = agent_pipelines()
+    data = [rnd(2 * SEG - 9, seed) for seed in (47, 48, 49)]
+    kept = [offchain.upload_batch(pipe, d) for d in data[:2]]
+    copies = [up.fragments.copy() for up in kept]
+    later = offchain.upload_batch(pipe, data[2])
+    assert not np.shares_memory(kept[0].fragments, kept[1].fragments)
+    assert not np.shares_memory(kept[1].fragments, later.fragments)
+    for up, want in zip(kept, copies):
+        assert np.array_equal(up.fragments, want)
+    assert not np.array_equal(copies[0], copies[1])
+
+
+@pytest.mark.parametrize("size", [2 * SEG, 2 * SEG + 5])
+def test_agent_pipeline_stages_no_buffer_on_the_cpu(size):
+    _, pipe = agent_pipelines()
+    assert pipe.staged_buffers == pipe.staged_allocs == 0
+    for seed in (50, 51):
+        offchain.upload_batch(pipe, rnd(size, seed).tobytes())
+    assert pipe.staged_buffers == pipe.staged_allocs == 0
+    gateway = offchain.OssGateway(StandInNode(), "gw0", pipe.pipeline)
+    assert gateway.pipeline.staged_buffers == 0
+    assert gateway.pipeline.staged_allocs == 0
+
+
+@pytest.mark.parametrize("size", [2 * SEG, 2 * SEG + 5])
+def test_upload_of_bytes_and_of_an_array_agree_on_the_cpu(size):
+    """Read-only bytes are copied into segments of their own, a writable
+    array of whole segments is read where it lies: the same upload."""
+    _, pipe = agent_pipelines()
+    data = rnd(size, 52)
+    want = offchain.upload_batch(pipe, data)
+    got = offchain.upload_batch(pipe, data.tobytes())
+    assert np.array_equal(got.fragments, want.fragments)
+    assert np.array_equal(got.tags, want.tags)
+    assert got.fragment_hashes == want.fragment_hashes
+    assert got.segment_hashes == want.segment_hashes
+    assert got.file_hash == want.file_hash
 
 
 def test_device_fragments_handle_fetches_once():
