@@ -46,6 +46,7 @@ for an agent, a pipeline and key on the CPU).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -253,10 +254,10 @@ class AgentPipeline:
     ``staged_buffers`` counts the page-locked host buffers its uploads
     took on a CUDA device (``upload_batch``: the fragments, and the
     segments where the host copies them), ``staged_allocs`` the
-    page-locked allocations made during those uploads (the rise of
-    ``num_host_alloc``, process-wide); the host cache's hit share is
-    ``1 - staged_allocs / staged_buffers`` while uploads run one at a
-    time (uploads side by side each count the other's allocations)."""
+    page-locked allocations made while any of those uploads ran (the
+    rise of ``num_host_alloc``, process-wide, each allocation counted
+    once however many uploads ran beside it); the host cache's hit share
+    is ``1 - staged_allocs / staged_buffers``."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  podr2_key: podr2.Podr2Key | None = None, engine=None, *,
@@ -265,6 +266,7 @@ class AgentPipeline:
                                         device=device, engine=engine)
         self.fragment_uploads = 0
         self.staged_buffers = self.staged_allocs = 0
+        self._uploads = self._allocs_mark = 0
         self._lock = threading.Lock()
 
     @property
@@ -286,6 +288,25 @@ class AgentPipeline:
     @engine.setter
     def engine(self, engine) -> None:
         self.pipeline.engine = engine
+
+    @contextlib.contextmanager
+    def _counting_allocs(self):
+        """Count into ``staged_allocs`` the page-locked allocations made
+        while the block, one upload, runs: the stretches in which
+        several uploads overlap are counted once."""
+        self._count_allocs(1)
+        try:
+            yield
+        finally:
+            self._count_allocs(-1)
+
+    def _count_allocs(self, step: int) -> None:
+        with self._lock:
+            now = _host_allocs(self.device)
+            if self._uploads:
+                self.staged_allocs += now - self._allocs_mark
+            self._allocs_mark = now
+            self._uploads += step
 
     def encode_step(self, segments, tenant: str | None = None
                     ) -> DeviceFragments:
@@ -398,7 +419,15 @@ class Upload:
     ("fetch.wait", nothing to wait for on the CPU) and copies the
     fragments out ("fetch.copy"), "hash" derives identities and ids,
     "tag" ends with the tags on the host, "finish" hashes the file and
-    assembles the result. A stage's parts sum to it."""
+    assembles the result. A stage's parts sum to it. Then the
+    ``ENGINE_CLOCKS``, 0 without an engine: "encode.queue", the part of
+    "encode.launch" that the encode's requests waited in the engine's
+    queue (``Receipt.queued``), and "tag.queue", the same part of "tag".
+    Through an engine, "encode.launch" holds the engine's whole round
+    trip (queue, stacking, kernel, the batch's synchronize) and
+    "fetch.wait" is about 0.
+    ``engine``: the ``Receipt`` of each engine request that served the
+    upload, encode then tag; empty without an engine."""
 
     fragments: np.ndarray                  # [B, k+m, n] uint8
     tags: np.ndarray                       # [B, k+m, blocks, limbs] uint32
@@ -408,19 +437,40 @@ class Upload:
     file_hash: bytes
     fetches: int                           # device-to-host copies made
     seconds: dict[str, float]
+    engine: tuple = ()                     # serve.Receipt of each request
 
 
 #: ``Upload.seconds``' keys in the order the stages run; ``<stage>.<part>``
 #: is a part of ``<stage>``
 UPLOAD_STAGES = ("pad", "encode", "encode.h2d", "encode.launch", "fetch",
                  "fetch.wait", "fetch.copy", "hash", "tag", "finish")
+#: ``Upload.seconds``' keys after the stages: an engine's queue waits
+ENGINE_CLOCKS = ("encode.queue", "tag.queue")
+
+
+_HASH_THREADS = min(8, os.cpu_count() or 1)
+_hash_lock = threading.Lock()
+_hash_pool: tuple[int, ThreadPoolExecutor] | None = None
 
 
 def _hash_all(blobs) -> list[bytes]:
     """sha256 of each buffer; hashlib releases the interpreter lock on
-    large buffers, so up to 8 threads hash them side by side."""
-    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-        return list(pool.map(fragment_hash, blobs))
+    large buffers, so the threads of one process-wide pool (up to 8, no
+    more than the host's cores) hash them side by side. Uploads running
+    at once share the pool, so together they never run more hashing
+    threads than it has."""
+    return list(_hashers().map(fragment_hash, blobs))
+
+
+def _hashers() -> ThreadPoolExecutor:
+    """The process's hashing pool, made on first use, and anew in a
+    forked child (whose copy of its parent's has no threads)."""
+    global _hash_pool
+    with _hash_lock:
+        if _hash_pool is None or _hash_pool[0] != os.getpid():
+            _hash_pool = (os.getpid(), ThreadPoolExecutor(
+                _HASH_THREADS, thread_name_prefix="cess-hash"))
+        return _hash_pool[1]
 
 
 def upload_batch(pipeline: AgentPipeline, data, *,
@@ -442,7 +492,12 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     whole segments is copied in from the caller's memory as it is. The
     span carries ``pinned`` (whether it was so) and ``host_allocs``: the
     page-locked allocations made during the call, process-wide, 0 when
-    the host cache served every buffer."""
+    the host cache served every buffer.
+
+    Through an engine (``pipeline.engine``) the upload collects the
+    ``Receipt`` of each of its requests (batch id, real and bucket rows)
+    into ``Upload.engine`` and their queue waits into ``seconds``
+    (``ENGINE_CLOCKS``)."""
     cfg = pipeline.config
     size = memoryview(data).nbytes
     rows = cfg.k + cfg.m
@@ -450,9 +505,13 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     pinned = pipeline.device.type == "cuda"
     allocs_before = _host_allocs(pipeline.device)
     named = {} if file is None else {"file": file}
-    seconds = dict.fromkeys(UPLOAD_STAGES, 0.0)
-    with trace.span("offchain.upload", sys="offchain", **named,
-                    segments=nseg, size=size) as span:
+    seconds = dict.fromkeys(UPLOAD_STAGES + ENGINE_CLOCKS, 0.0)
+    engine = pipeline.engine
+    with pipeline._counting_allocs(), \
+            trace.span("offchain.upload", sys="offchain", **named,
+                       segments=nseg, size=size) as span, \
+            (contextlib.nullcontext(()) if engine is None
+             else engine.receipts()) as receipts:
         with trace.stage("offchain.upload.pad", seconds, "pad"):
             buf = np.frombuffer(data, dtype=np.uint8)
             pad = (-size) % cfg.segment_size
@@ -496,15 +555,16 @@ def upload_batch(pipeline: AgentPipeline, data, *,
         with trace.stage("offchain.upload.finish", seconds, "finish"):
             file_hash = fragment_hash(b"".join(h for fs in frag_hashes
                                                for h in fs))
+            for rc in receipts:
+                seconds[f"{rc.cls}.queue"] += rc.queued
             up = Upload(frags, tags, ids, frag_hashes,
                         hashes[frags.shape[0] * rows:], file_hash,
-                        handle.fetches, seconds)
+                        handle.fetches, seconds, tuple(receipts))
             allocs = _host_allocs(pipeline.device) - allocs_before
         span.set(pinned=pinned, host_allocs=allocs)
     if pinned:
         with pipeline._lock:
             pipeline.staged_buffers += 2 if staged else 1
-            pipeline.staged_allocs += allocs
     return up
 
 
@@ -786,6 +846,7 @@ def _agent_pipeline(pipeline) -> AgentPipeline:
     wrapped.pipeline = pipeline
     wrapped.fragment_uploads = 0
     wrapped.staged_buffers = wrapped.staged_allocs = 0
+    wrapped._uploads = wrapped._allocs_mark = 0
     wrapped._lock = threading.Lock()
     return wrapped
 

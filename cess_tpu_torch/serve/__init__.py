@@ -22,7 +22,7 @@ The direct synchronous path stays the default wherever no engine is
 configured.
 """
 from .adaptive import AdaptiveBatchPolicy, AdmissionController
-from .engine import EngineFuture, SubmissionEngine, make_engine
+from .engine import EngineFuture, Receipt, SubmissionEngine, make_engine
 from .policy import (CLASS_PRIORITY, CLASSES, AdmissionPolicy, EngineClosed,
                      EngineError, EngineSaturated, EngineShed, EngineTimeout,
                      EngineUnavailable)
@@ -48,6 +48,7 @@ __all__ = [
     "EngineTimeout",
     "EngineUnavailable",
     "Policy",
+    "Receipt",
     "RemediationPlane",
     "StreamStats",
     "StreamingIngest",

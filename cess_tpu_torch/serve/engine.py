@@ -93,9 +93,15 @@ on the batcher's); each batch an ``engine.batch`` span under its first
 member's and a ``device.<op>`` span under that, both naming the
 ``backend`` ("primary" or "cpu-fallback"); salvage re-runs and
 fallbacks annotate them. ``Tracer(device_annotations=True)`` wraps each
-dispatch in ``torch.profiler.record_function("cess:<op>")``. Breaker
-trips and recoveries, saturation and a batcher escape are noted in the
-flight journal (``obs/flight.py``) with the engine lock released.
+dispatch in ``torch.profiler.record_function("cess:<op>")``. Traced or
+not, every resolved future carries a ``Receipt``: its batch's id,
+members, real and bucket rows, and the seconds the request queued
+(submit to drain); ``receipts()`` collects those of the blocking calls
+one thread makes. Under a tracer the request span carries ``queued_s``
+too, and the batch span its ``batch`` id and ``stacked_bytes`` (the
+member copies and zero fill of its stacking).
+Breaker trips and recoveries, saturation and a batcher escape are noted
+in the flight journal (``obs/flight.py``) with the engine lock released.
 
 Device pool (opt-in, ``pool=``, ``serve/pool.py``). The batcher hands
 each drained batch to the pool, whose chosen lane runs it on its own
@@ -145,6 +151,7 @@ import collections
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import threading
 import time
 from typing import Any
@@ -171,16 +178,37 @@ _TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8,
                 np.dtype(np.int64): torch.int64}
 
 
+@dataclasses.dataclass(frozen=True)
+class Receipt:
+    """What serving one request took, fixed when its batch completed.
+    ``batch``: the id of the device batch that served it (engine-wide,
+    from 1; a member re-run alone after its batch failed gets a new
+    one); ``members``: the requests in that batch; ``rows``: the batch's
+    real rows; ``bucket``: the rows it ran on the device, so ``bucket -
+    rows`` are zero pad rows (a stacked op's R x F bucket); ``queued``:
+    seconds from submit until the batch was drained."""
+
+    cls: str
+    batch: int
+    members: int
+    rows: int
+    bucket: int
+    queued: float
+
+
 class EngineFuture:
     """Result handle for a submitted request (threading-based: the
-    engine serves plain synchronous agents, not an event loop)."""
+    engine serves plain synchronous agents, not an event loop).
+    ``receipt``: the request's ``Receipt`` once it resolved, else
+    None."""
 
-    __slots__ = ("_event", "_value", "_exc")
+    __slots__ = ("_event", "_value", "_exc", "receipt")
 
     def __init__(self):
         self._event = threading.Event()
         self._value: Any = None
         self._exc: BaseException | None = None
+        self.receipt: Receipt | None = None
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -224,6 +252,9 @@ class _Request:
     span: Any = trace.NOOP_SPAN
     # per-tenant accounting tag (obs/slo.py); None when untagged
     tenant: str | None = None
+    # set when drained: the batch's id and the drain's monotonic time
+    batch: int = 0
+    drained: float = 0.0
 
 
 def _host(x) -> np.ndarray:
@@ -369,6 +400,11 @@ class SubmissionEngine:
         self._closed = False
         self._flushing = 0       # active flush() calls force draining
         self._inflight = 0
+        self._batch_ids = itertools.count(1)    # Receipt.batch
+        # per thread: the receipts a ``receipts()`` block collects, and,
+        # traced, the bytes the batch a batcher or lane thread runs has
+        # stacked (None untraced)
+        self._local = threading.local()
         # the multi-device serving plane (serve/pool.py, opt-in): bound
         # after the monitors exist, so each lane builds its breakers
         self.pool = pool
@@ -716,6 +752,27 @@ class SubmissionEngine:
         the per-tenant latency distributions; empty without a board."""
         return [] if self.slo is None else self.slo.tenant_histograms()
 
+    @contextlib.contextmanager
+    def receipts(self):
+        """Collect the ``Receipt`` of every blocking call (``encode``,
+        ``tag_fragments``, ...) that this thread makes inside the block:
+        yields the list they are appended to, in call order. A nested
+        block's receipts count in the enclosing one too."""
+        local = self._local
+        outer = getattr(local, "receipts", None)
+        local.receipts = got = []
+        try:
+            yield got
+        finally:
+            local.receipts = outer
+            if outer is not None:
+                outer.extend(got)
+
+    def _keep_receipt(self, fut: EngineFuture) -> None:
+        got = getattr(self._local, "receipts", None)
+        if got is not None and fut.receipt is not None:
+            got.append(fut.receipt)
+
     def flush(self, timeout: float | None = None) -> bool:
         """Force-drain everything queued and wait until it resolves (no
         waiting out the coalescing delay). Returns False if the timeout
@@ -780,14 +837,20 @@ class SubmissionEngine:
         deadline."""
         res = self.resilience
         if res is None:
-            return submit(*args, timeout=timeout, tenant=tenant).result()
+            fut = submit(*args, timeout=timeout, tenant=tenant)
+            out = fut.result()
+            self._keep_receipt(fut)
+            return out
         if timeout is None:
             timeout = self.policy.default_timeout
         budget = Budget(timeout)
 
         def attempt(b):
             left = b.remaining()
-            return submit(*args, timeout=left, tenant=tenant).result(left)
+            fut = submit(*args, timeout=left, tenant=tenant)
+            out = fut.result(left)
+            self._keep_receipt(fut)
+            return out
 
         return res.retry.call(attempt, retry_on=(EngineSaturated,),
                               budget=budget, token=cls, stats=res.stats,
@@ -1099,6 +1162,9 @@ class SubmissionEngine:
                 rest.append(r)
         q.clear()
         q.extend(rest)
+        bid, now = next(self._batch_ids), time.monotonic()
+        for r in batch:
+            r.batch, r.drained = bid, now
         return batch
 
     def _device_annotation(self, tracer, op: str):
@@ -1173,6 +1239,7 @@ class SubmissionEngine:
                 r.span.event("batched", batch_span=bspan.span_id,
                              members=len(batch))
         t0 = time.monotonic()
+        self._local.stacked = None if tracer is None else 0
         try:
             # current=True: the device span is the batcher's active span
             # for the dispatch, so fault firings annotate it
@@ -1215,6 +1282,8 @@ class SubmissionEngine:
         if mon is not None and not degraded:
             mon.record_success(time.monotonic() - t0)
         self._account_batch(batch, device_rows, bspan, lane=lane, t0=t0)
+        if bspan is not trace.NOOP_SPAN:
+            bspan.set(stacked_bytes=self._local.stacked)
         bspan.finish()
         for r, out in zip(batch, results):
             r.future._resolve(out)
@@ -1291,6 +1360,7 @@ class SubmissionEngine:
                 r.span.set(outcome="error", error=repr(exc)).finish()
                 self._observe_failure(r, time.monotonic())
             else:
+                r.batch = next(self._batch_ids)     # a batch of its own
                 self._account_batch([r], rows, lane=lane)
                 r.future._resolve(out[0])
                 r.span.set(outcome="ok").finish()
@@ -1326,14 +1396,17 @@ class SubmissionEngine:
     def _account_batch(self, batch: list[_Request], device_rows: int,
                        batch_span=trace.NOOP_SPAN, lane=None,
                        t0: float | None = None) -> None:
-        """Count a served batch, then feed the planes: ``done`` is after
-        the batch's synchronize (``_split_rows``, ``_op_prove``), so each
-        latency and ``dispatch_s = done - t0`` include the device work.
-        ``lane``: the pool lane that ran it (its index keys the profile's
-        account)."""
+        """Count a served batch, give each member's future its
+        ``Receipt``, then feed the planes: ``done`` is after the batch's
+        synchronize (``_split_rows``, ``_op_prove``), so each latency and
+        ``dispatch_s = done - t0`` include the device work. ``lane``: the
+        pool lane that ran it (its index keys the profile's account)."""
         done = time.monotonic()
         real_rows = sum(r.rows for r in batch)
         cls = batch[0].cls
+        for r in batch:
+            r.future.receipt = Receipt(cls, r.batch, len(batch), real_rows,
+                                       device_rows, r.drained - r.enqueue_t)
         with self._lock:
             st = self.stats.classes[cls]
             st.batches += 1
@@ -1377,11 +1450,13 @@ class SubmissionEngine:
         if batch_span is not trace.NOOP_SPAN:
             pad = max(device_rows - real_rows, 0)
             pad_waste = round(pad / device_rows if device_rows else 0.0, 4)
-            batch_span.set(device_rows=device_rows, pad_waste=pad_waste)
+            batch_span.set(device_rows=device_rows, pad_waste=pad_waste,
+                           batch=batch[0].batch)
             for r in batch:
                 r.span.set(occupancy=len(batch), pad_waste=pad_waste,
                            batch_span=batch_span.span_id,
-                           latency_s=round(done - r.enqueue_t, 6))
+                           latency_s=round(done - r.enqueue_t, 6),
+                           queued_s=round(r.future.receipt.queued, 6))
 
     # -- op runners (batcher thread only) -------------------------------
     # Each runs ``(batch, degraded=False)``; a degraded batch assembles
@@ -1446,6 +1521,7 @@ class SubmissionEngine:
             return first.contiguous()
         out = torch.empty((rows,) + tuple(first.shape[1:]), dtype=dtype,
                           device=dev)
+        self._note_stacked(out)
         off = 0
         for a in arrs:
             out[off:off + a.shape[0]].copy_(torch.as_tensor(a))
@@ -1454,6 +1530,16 @@ class SubmissionEngine:
             out[off:].zero_()
         return out
 
+    def _note_stacked(self, out: torch.Tensor, members=()) -> None:
+        """Count, under a tracer, the device bytes the current thread's
+        batch stacked (the ``engine.batch`` span's ``stacked_bytes``):
+        ``out`` written whole, then each of ``members`` copied in."""
+        local = self._local
+        if getattr(local, "stacked", None) is None:
+            return
+        local.stacked += out.element_size() * (out.numel() + sum(
+            int(np.prod(a.shape)) for a in members))
+
     def _stacked(self, arrs: list, rb: int, fb: int, dtype,
                  dev: torch.device) -> torch.Tensor:
         """Stack per-request [F_i, ...] payloads into a zero-padded
@@ -1461,6 +1547,7 @@ class SubmissionEngine:
         first = arrs[0]
         out = torch.zeros((rb, fb) + tuple(first.shape[1:]), dtype=dtype,
                           device=dev)
+        self._note_stacked(out, arrs)
         for i, a in enumerate(arrs):
             out[i, :a.shape[0]].copy_(torch.as_tensor(a))
         return out

@@ -11,6 +11,7 @@ so it runs where only the port is installed:
 The CPU tests of the same code, against the JAX package, are
 ``test_torch_offchain.py`` and ``test_torch_sim.py``.
 """
+import threading
 import warnings
 
 import numpy as np
@@ -190,6 +191,37 @@ def test_kept_upload_keeps_its_bytes_through_later_uploads(cuda_device):
     assert np.array_equal(kept.fragments, frags)
     assert np.array_equal(kept.tags, tags)
     assert_same_upload(kept, offchain.upload_batch(cpu, data))
+
+
+def test_uploads_side_by_side_count_each_page_locked_block_once(
+        cuda_device):
+    """Four threads upload kept files of distinct sizes at once, so each
+    takes blocks of its own while the others run: ``staged_allocs``
+    rises by the allocations made, not by each upload's count of all of
+    them."""
+    pipe, cpu = pipelines(cuda_device)
+    rng = np.random.default_rng(15)
+    datas = [rng.integers(0, 256, n * SEG - 9, np.uint8) for n in (1, 2, 3, 4)]
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    barrier = threading.Barrier(len(datas))
+    ups = [None] * len(datas)
+
+    def client(i):
+        barrier.wait()
+        ups[i] = offchain.upload_batch(pipe, datas[i])
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(datas))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    made = torch.cuda.host_memory_stats()["num_host_alloc"] - before
+    assert all(up is not None for up in ups)
+    assert pipe.staged_buffers == 2 * len(datas)
+    assert pipe.staged_allocs == made
+    for up, data in zip(ups, datas):
+        assert_same_upload(up, offchain.upload_batch(cpu, data))
 
 
 def test_padded_tail_is_zero_in_a_block_that_held_another_file(cuda_device):

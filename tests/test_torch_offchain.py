@@ -221,7 +221,11 @@ def test_upload_batch_matches_gateway_upload(routed):
     assert up.fetches == 1 and pipe.fragment_uploads == 0
     assert set(up.seconds) == {"pad", "encode", "encode.h2d",
                                "encode.launch", "fetch", "fetch.wait",
-                               "fetch.copy", "hash", "tag", "finish"}
+                               "fetch.copy", "hash", "tag", "finish",
+                               "encode.queue", "tag.queue"}
+    # the engine's requests, encode then tag; none on the direct path
+    assert [rc.cls for rc in up.engine] == (
+        ["encode", "tag"] if routed == "engine" else [])
 
 
 TOP_STAGES = ("pad", "encode", "fetch", "hash", "tag", "finish")
@@ -232,13 +236,15 @@ def test_upload_stage_parts_sum_to_their_stage():
     _, pipe = agent_pipelines()
     up = offchain.upload_batch(pipe, rnd(2 * SEG + 5, 41).tobytes())
     s = up.seconds
-    assert list(s) == list(offchain.UPLOAD_STAGES)
+    assert list(s) == list(offchain.UPLOAD_STAGES + offchain.ENGINE_CLOCKS)
     assert s["encode"] == s["encode.h2d"] + s["encode.launch"]
     assert s["fetch"] == s["fetch.wait"] + s["fetch.copy"]
     assert all(v >= 0 for v in s.values()) and s["hash"] > 0
-    parts = [k for k in s if "." in k]
+    parts = [k for k in offchain.UPLOAD_STAGES if "." in k]
     assert {k.split(".")[0] for k in parts} == {"encode", "fetch"}
     assert [k for k in s if "." not in k] == list(TOP_STAGES)
+    # no engine: its queue clocks read 0
+    assert [s[k] for k in offchain.ENGINE_CLOCKS] == [0.0, 0.0]
 
 
 def test_upload_stages_cover_the_wall():
@@ -358,6 +364,35 @@ def test_agent_pipeline_stages_no_buffer_on_the_cpu(size):
     gateway = offchain.OssGateway(StandInNode(), "gw0", pipe.pipeline)
     assert gateway.pipeline.staged_buffers == 0
     assert gateway.pipeline.staged_allocs == 0
+
+
+def test_overlapping_uploads_count_each_page_locked_block_once(monkeypatch):
+    """``staged_allocs`` counts the host allocator's blocks made while any
+    upload runs, once each, however the uploads overlap; blocks made
+    between uploads are nobody's."""
+    made = [0]
+    monkeypatch.setattr(offchain, "_host_allocs", lambda device: made[0])
+    _, pipe = agent_pipelines()
+    a, b = pipe._counting_allocs(), pipe._counting_allocs()
+    a.__enter__()
+    made[0] += 2            # a's
+    b.__enter__()
+    made[0] += 3            # a's or b's: counted once
+    a.__exit__(None, None, None)
+    made[0] += 1            # b's
+    b.__exit__(None, None, None)
+    made[0] += 7            # between uploads
+    with pipe._counting_allocs():
+        made[0] += 4
+    assert pipe.staged_allocs == 2 + 3 + 1 + 4
+    with pytest.raises(RuntimeError):
+        with pipe._counting_allocs():
+            made[0] += 5
+            raise RuntimeError("an upload that fails")
+    made[0] += 6            # after it: nobody's
+    with pipe._counting_allocs():
+        pass
+    assert pipe.staged_allocs == 2 + 3 + 1 + 4 + 5
 
 
 @pytest.mark.parametrize("size", [2 * SEG, 2 * SEG + 5])
