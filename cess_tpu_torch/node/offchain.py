@@ -417,9 +417,11 @@ class Upload:
     segments, "encode" copies them to the device ("encode.h2d") and
     enqueues the encode ("encode.launch"), "fetch" waits for it
     ("fetch.wait", nothing to wait for on the CPU) and copies the
-    fragments out ("fetch.copy"), "hash" derives identities and ids,
-    "tag" ends with the tags on the host, "finish" hashes the file and
-    assembles the result. A stage's parts sum to it. Then the
+    fragments out ("fetch.copy"), "hash" hashes the parity rows, waits
+    for every identity (the segments and their data rows went to the
+    hashing pool as "pad" wrote them) and derives the ids, "tag" ends
+    with the tags on the host, "finish" hashes the file and assembles
+    the result. A stage's parts sum to it. Then the
     ``ENGINE_CLOCKS``, 0 without an engine: "encode.queue", the part of
     "encode.launch" that the encode's requests waited in the engine's
     queue (``Receipt.queued``), and "tag.queue", the same part of "tag".
@@ -453,24 +455,92 @@ _hash_lock = threading.Lock()
 _hash_pool: tuple[int, ThreadPoolExecutor] | None = None
 
 
-def _hash_all(blobs) -> list[bytes]:
-    """sha256 of each buffer; hashlib releases the interpreter lock on
-    large buffers, so the threads of one process-wide pool (up to 8, no
-    more than the host's cores) hash them side by side. Uploads running
-    at once share the pool, so together they never run more hashing
-    threads than it has."""
-    return list(_hashers().map(fragment_hash, blobs))
-
-
 def _hashers() -> ThreadPoolExecutor:
     """The process's hashing pool, made on first use, and anew in a
-    forked child (whose copy of its parent's has no threads)."""
+    forked child (whose copy of its parent's has no threads). hashlib
+    releases the interpreter lock on large buffers, so its threads (up
+    to 8, no more than the host's cores) hash side by side. Uploads
+    running at once share the pool, so together they never run more
+    hashing threads than it has."""
     global _hash_pool
     with _hash_lock:
         if _hash_pool is None or _hash_pool[0] != os.getpid():
             _hash_pool = (os.getpid(), ThreadPoolExecutor(
                 _HASH_THREADS, thread_name_prefix="cess-hash"))
         return _hash_pool[1]
+
+
+def _segment_and_first_row(segment: np.ndarray, n: int
+                           ) -> tuple[bytes, bytes]:
+    """sha256 of a segment and of its first ``n`` bytes (data row 0 of a
+    systematic encode) in one pass over it: the row's digest is read off
+    a copy of the running state at byte ``n``."""
+    h = hashlib.sha256(segment[:n])
+    first = h.copy().digest()
+    h.update(segment[n:])
+    return h.digest(), first
+
+
+class _UploadHashes:
+    """The sha256 identities of one upload, hashed on the process's pool
+    (``_hashers()``) as soon as their bytes are on the host.
+
+    Each segment is submitted as the pad writes it: one pass over the
+    segment, which also yields data row 0's digest, and one task for
+    each data row 1..k-1 over a view of it. The k data rows tile the
+    segment (``PipelineConfig.fragment_size`` is ``segment_size // k``
+    and refuses a k that does not divide it) and every encode of the
+    port is systematic, so those rows are the fetched fragments' first
+    k; after the fetch only the m parity rows are left to hash. The
+    futures hold the views they read, so a buffer being hashed lives
+    until ``collect`` has waited for it; leaving the block cancels what
+    has not started.
+    ``hashed_bytes``: the bytes submitted; ``early_bytes``: those of
+    them submitted before the fetch."""
+
+    def __init__(self, cfg: PipelineConfig):
+        self.k, self.n = cfg.k, cfg.fragment_size
+        self.hashed_bytes = self.early_bytes = 0
+        self._pool = _hashers()
+        self._segments: list[list] = []     # per segment: its futures
+        self._futures: list = []
+
+    def __enter__(self) -> "_UploadHashes":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for f in self._futures:
+            f.cancel()
+
+    def _submit(self, fn, *args):
+        f = self._pool.submit(fn, *args)
+        self._futures.append(f)
+        return f
+
+    def segment(self, segment: np.ndarray) -> None:
+        """Hash one segment and its data rows now."""
+        k, n = self.k, self.n
+        self._segments.append(
+            [self._submit(_segment_and_first_row, segment, n)]
+            + [self._submit(fragment_hash, segment[j * n:(j + 1) * n])
+               for j in range(1, k)])
+        self.early_bytes += segment.nbytes + (k - 1) * n
+        self.hashed_bytes += segment.nbytes + (k - 1) * n
+
+    def collect(self, frags: np.ndarray
+                ) -> tuple[list[tuple[bytes, ...]], list[bytes]]:
+        """Hash the parity rows of the fetched fragments [B, k+m, n],
+        wait for every hash: (each segment's fragment hashes, segment
+        hashes)."""
+        parity = [[self._submit(fragment_hash, row) for row in seg[self.k:]]
+                  for seg in frags]
+        self.hashed_bytes += frags[:, self.k:].nbytes
+        frag_hashes, segment_hashes = [], []
+        for (first, *data), rest in zip(self._segments, parity):
+            segment_hash, row0 = first.result()
+            segment_hashes.append(segment_hash)
+            frag_hashes.append((row0, *(f.result() for f in data + rest)))
+        return frag_hashes, segment_hashes
 
 
 def upload_batch(pipeline: AgentPipeline, data, *,
@@ -494,6 +564,15 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     page-locked allocations made during the call, process-wide, 0 when
     the host cache served every buffer.
 
+    Each segment is hashed as soon as the host holds it (``pad``): one
+    pass gives its identity and its first data row's, and its other
+    data rows are hashed from views of it, since the encode is
+    systematic; the parity rows wait for the fetch (``_UploadHashes``).
+    So a data row's identity is that of the segment's bytes, whatever
+    the device's copy of it holds: a receiver's hash check refuses a
+    corrupted copy. The span carries ``hashed_bytes`` and
+    ``early_bytes`` (hashed before the fetch).
+
     Through an engine (``pipeline.engine``) the upload collects the
     ``Receipt`` of each of its requests (batch id, real and bucket rows)
     into ``Upload.engine`` and their queue waits into ``seconds``
@@ -511,7 +590,8 @@ def upload_batch(pipeline: AgentPipeline, data, *,
             trace.span("offchain.upload", sys="offchain", **named,
                        segments=nseg, size=size) as span, \
             (contextlib.nullcontext(()) if engine is None
-             else engine.receipts()) as receipts:
+             else engine.receipts()) as receipts, \
+            _UploadHashes(cfg) as hashes:
         with trace.stage("offchain.upload.pad", seconds, "pad"):
             buf = np.frombuffer(data, dtype=np.uint8)
             pad = (-size) % cfg.segment_size
@@ -523,10 +603,14 @@ def upload_batch(pipeline: AgentPipeline, data, *,
                 src = torch.empty((nseg, cfg.segment_size),
                                   dtype=torch.uint8, pin_memory=pinned)
                 segments = src.numpy()
-                segments.reshape(-1)[:size] = buf
-                segments.reshape(-1)[size:] = 0
             else:
                 src = segments = buf.reshape(-1, cfg.segment_size)
+            for i, seg in enumerate(segments):
+                if staged:
+                    part = buf[i * cfg.segment_size:][:cfg.segment_size]
+                    seg[:part.size] = part
+                    seg[part.size:] = 0
+                hashes.segment(seg)
         with trace.stage("offchain.upload.encode", seconds):
             with trace.stage("offchain.upload.encode.h2d", seconds,
                              "encode.h2d"):
@@ -544,11 +628,8 @@ def upload_batch(pipeline: AgentPipeline, data, *,
                              "fetch.copy"):
                 frags = np.asarray(handle)
         with trace.stage("offchain.upload.hash", seconds, "hash"):
-            hashes = _hash_all([row for seg in frags for row in seg]
-                               + list(segments))
-            frag_hashes = [tuple(hashes[i * rows:(i + 1) * rows])
-                           for i in range(segments.shape[0])]
-            ids = _ids(hashes[:frags.shape[0] * rows]).reshape(
+            frag_hashes, segment_hashes = hashes.collect(frags)
+            ids = _ids([h for fs in frag_hashes for h in fs]).reshape(
                 frags.shape[0], rows, 2)
         with trace.stage("offchain.upload.tag", seconds, "tag"):
             tags = pipeline.tag_step(handle, ids, tenant=tenant)
@@ -557,11 +638,12 @@ def upload_batch(pipeline: AgentPipeline, data, *,
                                                for h in fs))
             for rc in receipts:
                 seconds[f"{rc.cls}.queue"] += rc.queued
-            up = Upload(frags, tags, ids, frag_hashes,
-                        hashes[frags.shape[0] * rows:], file_hash,
-                        handle.fetches, seconds, tuple(receipts))
+            up = Upload(frags, tags, ids, frag_hashes, segment_hashes,
+                        file_hash, handle.fetches, seconds, tuple(receipts))
             allocs = _host_allocs(pipeline.device) - allocs_before
-        span.set(pinned=pinned, host_allocs=allocs)
+        span.set(pinned=pinned, host_allocs=allocs,
+                 hashed_bytes=hashes.hashed_bytes,
+                 early_bytes=hashes.early_bytes)
     if pinned:
         with pipeline._lock:
             pipeline.staged_buffers += 2 if staged else 1

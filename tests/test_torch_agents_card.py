@@ -160,6 +160,10 @@ def test_upload_stages_in_page_locked_memory_and_matches_the_cpu(
     assert attrs["pinned"] is True and attrs["host_allocs"] >= 0
     assert pipe.staged_buffers == (2 if staged else 1)
     assert pipe.staged_allocs == attrs["host_allocs"]
+    # RS(2,1): each segment and its data row 1 hashed from the host's
+    # segments before the fetch, its parity row after: 3 of 4 bytes early
+    assert attrs["hashed_bytes"] == 4 * up.fragments.size // 3
+    assert 4 * attrs["early_bytes"] == 3 * attrs["hashed_bytes"]
 
 
 @pytest.mark.parametrize("size,as_bytes,staged", UPLOAD_INPUTS,

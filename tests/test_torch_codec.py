@@ -19,6 +19,8 @@ import cess_tpu.chain.file_bank  # noqa: F401
 import cess_tpu.chain.runtime  # noqa: F401
 import cess_tpu.chain.tee_worker  # noqa: F401
 import cess_tpu.node.consensus  # noqa: F401
+import cess_tpu.node.dht  # noqa: F401
+import cess_tpu.node.mmr  # noqa: F401
 import cess_tpu.node.network  # noqa: F401
 import cess_tpu.node.offchain  # noqa: F401
 from cess_tpu import codec as jcodec
@@ -27,6 +29,8 @@ import cess_tpu_torch.chain.file_bank  # noqa: F401
 import cess_tpu_torch.chain.runtime  # noqa: F401
 import cess_tpu_torch.chain.tee_worker  # noqa: F401
 import cess_tpu_torch.node.consensus  # noqa: F401
+import cess_tpu_torch.node.dht  # noqa: F401
+import cess_tpu_torch.node.mmr  # noqa: F401
 import cess_tpu_torch.node.network  # noqa: F401
 import cess_tpu_torch.node.offchain  # noqa: F401
 from cess_tpu_torch import codec as pcodec
@@ -40,9 +44,10 @@ SLICE_TYPES = ["AttestationReport", "ChallengeInfo", "DealInfo", "Event",
                "AssetDetails", "AssetMetadata", "Bill", "CacherInfo",
                "Exposure", "OssInfo", "SignedExtrinsic", "SlotClaim",
                "Vote", "VrfProof",
-               # the node's (network, finality): imported here, since any
-               # test file of the worker may import them first
-               "Block", "Header", "Justification"]
+               # the node's (network, finality, DHT, MMR): imported here,
+               # since any test file of the worker may import them first
+               "Block", "Header", "Justification",
+               "AuthorityRecord", "Contact", "MmrProof"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,9 @@ verdicts are protocol facts. ``HostPodr2`` must also hand back the dtypes
 compared; the whole agents on the port run in tests/test_torch_sim.py.
 The card's run of the same steps is tests/test_torch_agents_card.py.
 """
+import hashlib
+import sys
+import threading
 import time
 import types
 
@@ -295,8 +298,12 @@ def test_upload_stages_are_child_spans_of_the_upload():
         offchain.upload_batch(pipe, rnd(SEG, 44).tobytes(), file="f.bin")
     spans = {s["name"]: s for s in tracer.finished()}
     upload = spans["offchain.upload"]
+    # one segment of RS(2,1): itself and data row 1 early, the parity
+    # row after the fetch
     assert upload["attrs"] == {"file": "f.bin", "segments": 1, "size": SEG,
-                               "pinned": False, "host_allocs": 0}
+                               "pinned": False, "host_allocs": 0,
+                               "hashed_bytes": 2 * SEG,
+                               "early_bytes": SEG + SEG // K}
     for name in STAGE_RANGES:
         parent = name.rsplit(".", 1)[0]
         want = upload if parent == "offchain.upload" else spans[parent]
@@ -408,6 +415,153 @@ def test_upload_of_bytes_and_of_an_array_agree_on_the_cpu(size):
     assert got.fragment_hashes == want.fragment_hashes
     assert got.segment_hashes == want.segment_hashes
     assert got.file_hash == want.file_hash
+
+
+GEOMETRIES = {"rs21": (2, 1), "rs48": (4, 8)}
+HASH_SIZES = {"1B": 1, "seg-1": SEG - 1, "seg": SEG, "2seg": 2 * SEG,
+              "3seg-1000": 3 * SEG - 1000}
+
+
+def geometry_pipeline(k, m):
+    """A port AgentPipeline of RS(k, m) over SEG-byte segments, on the
+    CPU."""
+    return offchain.AgentPipeline(PipelineConfig(k=k, m=m, segment_size=SEG),
+                                  podr2_key=adapt(jkey_of()), device="cpu")
+
+
+def sha(blob):
+    return hashlib.sha256(blob).digest()
+
+
+def padded_segments(data, seg):
+    flat = np.frombuffer(bytes(data), np.uint8)
+    out = np.zeros(-(-flat.size // seg) * seg, np.uint8)
+    out[:flat.size] = flat
+    return out.reshape(-1, seg)
+
+
+def assert_hashed_after_the_fetch(up, segments):
+    """The upload's identities are those of hashing the fetched rows and
+    the padded segments after the fetch, as every row was hashed before
+    the segments and their data rows went to the pool early."""
+    want = [tuple(sha(row) for row in seg) for seg in up.fragments]
+    assert up.fragment_hashes == want
+    assert up.segment_hashes == [sha(seg) for seg in segments]
+    assert up.file_hash == sha(b"".join(h for fs in want for h in fs))
+    ids = np.stack([jpodr2.fragment_id_from_hash(h)
+                    for fs in want for h in fs])
+    assert np.array_equal(up.ids, ids.reshape(up.ids.shape))
+
+
+@pytest.mark.parametrize("as_bytes", [True, False], ids=["bytes", "array"])
+@pytest.mark.parametrize("size", HASH_SIZES.values(), ids=HASH_SIZES.keys())
+@pytest.mark.parametrize("k,m", GEOMETRIES.values(), ids=GEOMETRIES.keys())
+def test_upload_identities_hashed_early_equal_the_fetched_rows(
+        k, m, size, as_bytes):
+    pipe = geometry_pipeline(k, m)
+    data = rnd(size, 60 + size % 97)
+    up = offchain.upload_batch(pipe, data.tobytes() if as_bytes else data)
+    segments = padded_segments(data, SEG)
+    assert up.fragments.shape == (len(segments), k + m, SEG // k)
+    assert_hashed_after_the_fetch(up, segments)
+    # systematic: data row j is the segment's j-th slice
+    n = SEG // k
+    for seg, frags in zip(segments, up.fragments):
+        for j in range(k):
+            assert np.array_equal(frags[j], seg[j * n:(j + 1) * n])
+
+
+@pytest.mark.parametrize("k,m,units,before,share", [
+    (2, 1, 32, 40, (3, 4)), (4, 8, 60, 64, (28, 60))], ids=GEOMETRIES.keys())
+def test_upload_counts_the_bytes_it_hashes_early(k, m, units, before, share):
+    """Per segment, in sixteenths of it (MiB at the 16 MiB mainnet
+    segment): the segment, its data rows 1..k-1 early, its parity rows
+    after the fetch; row 0's digest comes off the segment's own pass.
+    Before, every row and the segment were hashed after the fetch."""
+    pipe = geometry_pipeline(k, m)
+    n, unit = SEG // k, SEG // 16
+    assert ((k + m) * n + SEG) // unit == before
+    tracer = trace.Tracer()
+    with trace.armed(tracer):
+        for size in (2 * SEG, 3 * SEG - 1000):
+            offchain.upload_batch(pipe, rnd(size, size % 89).tobytes())
+    attrs = [s["attrs"] for s in tracer.finished()
+             if s["name"] == "offchain.upload"]
+    assert [a["hashed_bytes"] for a in attrs] == [2 * units * unit,
+                                                  3 * units * unit]
+    for a in attrs:
+        assert a["early_bytes"] * share[1] == a["hashed_bytes"] * share[0]
+        assert a["early_bytes"] == a["segments"] * (SEG + (k - 1) * n)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, SEG // 4, SEG // 2, SEG])
+def test_segment_and_first_row_hash_in_one_pass(n):
+    """The segment's digest and that of its first n bytes, whether or not
+    n falls on sha256's 64-byte block, and up to the whole segment."""
+    seg = rnd(SEG, 65 + n % 7)
+    assert offchain._segment_and_first_row(seg, n) == (sha(seg),
+                                                       sha(seg[:n]))
+
+
+def test_uploads_side_by_side_on_the_shared_pool_keep_their_own_hashes():
+    """Two threads upload different files on one pipeline at once, each
+    several segments, so their hashes interleave on the process's pool:
+    each ``Upload`` holds its own file's identities alone."""
+    pipe = geometry_pipeline(K, M)
+    datas = [rnd(5 * SEG - 333, 62), rnd(4 * SEG + 77, 63)]
+    want = [offchain.upload_batch(pipe, d) for d in datas]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for _ in range(3):
+            barrier = threading.Barrier(len(datas))
+            ups = [None] * len(datas)
+
+            def client(i):
+                barrier.wait()
+                ups[i] = offchain.upload_batch(pipe, datas[i].tobytes())
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(datas))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            assert not any(t.is_alive() for t in threads)
+            for up, w, d in zip(ups, want, datas):
+                assert up.fragment_hashes == w.fragment_hashes
+                assert up.segment_hashes == w.segment_hashes
+                assert up.file_hash == w.file_hash
+                assert_hashed_after_the_fetch(up, padded_segments(d, SEG))
+    finally:
+        sys.setswitchinterval(switch)
+
+
+def test_corrupted_systematic_copy_keeps_the_segment_slices_identity(
+        monkeypatch):
+    """A data row's identity is the hash of the segment's bytes, which the
+    protocol defines, not of the device's copy of them: the row is hashed
+    from the host's segment before the fetch. A copy corrupted on the
+    device therefore keeps the slice's identity, and a receiver's check
+    of the bytes against it (``MinerAgent._transfer``) refuses the row,
+    where hashing the fetched copy would have declared it under a hash
+    of its own."""
+    pipe = geometry_pipeline(K, M)
+    real = pipe.pipeline._encode
+
+    def corrupting(data, *args, **kwargs):
+        out = real(data, *args, **kwargs)
+        out[0, 1, 7] ^= 0xFF                # segment 0, data row 1
+        return out
+
+    monkeypatch.setattr(pipe.pipeline, "_encode", corrupting)
+    data = rnd(2 * SEG - 5, 64)
+    up = offchain.upload_batch(pipe, data)
+    seg = padded_segments(data, SEG)[0]
+    n = SEG // K
+    assert up.fragment_hashes[0][1] == sha(seg[n:2 * n])
+    assert sha(up.fragments[0, 1]) != up.fragment_hashes[0][1]
+    assert not np.array_equal(up.fragments[0, 1], seg[n:2 * n])
 
 
 def test_device_fragments_handle_fetches_once():
