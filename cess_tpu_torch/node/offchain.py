@@ -250,23 +250,20 @@ class AgentPipeline:
     ``podr2_key``, a settable ``engine`` (refused when its geometry or key
     differs, as ``StoragePipeline`` refuses it), and the two steps with
     host arrays in and out. ``fragment_uploads`` counts the ``tag_step``
-    calls whose fragments had to be copied to the device.
-    ``staged_buffers`` counts the page-locked host buffers its uploads
-    took on a CUDA device (``upload_batch``: the fragments, and the
-    segments where the host copies them), ``staged_allocs`` the
-    page-locked allocations made while any of those uploads ran (the
-    rise of ``num_host_alloc``, process-wide, each allocation counted
-    once however many uploads ran beside it); the host cache's hit share
-    is ``1 - staged_allocs / staged_buffers``."""
+    calls whose fragments had to be copied to the device."""
+
+    fragment_uploads = 0        # a class default until the first count
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  podr2_key: podr2.Podr2Key | None = None, engine=None, *,
                  device=None):
-        self.pipeline = StoragePipeline(config, podr2_key=podr2_key,
-                                        device=device, engine=engine)
-        self.fragment_uploads = 0
-        self.staged_buffers = self.staged_allocs = 0
-        self._uploads = self._allocs_mark = 0
+        self._init_state(StoragePipeline(config, podr2_key=podr2_key,
+                                         device=device, engine=engine))
+
+    def _init_state(self, pipeline: StoragePipeline) -> None:
+        """What an ``AgentPipeline`` holds, set by ``__init__`` and by
+        ``_agent_pipeline`` around a pipeline already built."""
+        self.pipeline = pipeline
         self._lock = threading.Lock()
 
     @property
@@ -288,25 +285,6 @@ class AgentPipeline:
     @engine.setter
     def engine(self, engine) -> None:
         self.pipeline.engine = engine
-
-    @contextlib.contextmanager
-    def _counting_allocs(self):
-        """Count into ``staged_allocs`` the page-locked allocations made
-        while the block, one upload, runs: the stretches in which
-        several uploads overlap are counted once."""
-        self._count_allocs(1)
-        try:
-            yield
-        finally:
-            self._count_allocs(-1)
-
-    def _count_allocs(self, step: int) -> None:
-        with self._lock:
-            now = _host_allocs(self.device)
-            if self._uploads:
-                self.staged_allocs += now - self._allocs_mark
-            self._allocs_mark = now
-            self._uploads += step
 
     def encode_step(self, segments, tenant: str | None = None
                     ) -> DeviceFragments:
@@ -586,9 +564,8 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     named = {} if file is None else {"file": file}
     seconds = dict.fromkeys(UPLOAD_STAGES + ENGINE_CLOCKS, 0.0)
     engine = pipeline.engine
-    with pipeline._counting_allocs(), \
-            trace.span("offchain.upload", sys="offchain", **named,
-                       segments=nseg, size=size) as span, \
+    with trace.span("offchain.upload", sys="offchain", **named,
+                    segments=nseg, size=size) as span, \
             (contextlib.nullcontext(()) if engine is None
              else engine.receipts()) as receipts, \
             _UploadHashes(cfg) as hashes:
@@ -644,9 +621,6 @@ def upload_batch(pipeline: AgentPipeline, data, *,
         span.set(pinned=pinned, host_allocs=allocs,
                  hashed_bytes=hashes.hashed_bytes,
                  early_bytes=hashes.early_bytes)
-    if pinned:
-        with pipeline._lock:
-            pipeline.staged_buffers += 2 if staged else 1
     return up
 
 
@@ -925,11 +899,7 @@ def _agent_pipeline(pipeline) -> AgentPipeline:
     if not isinstance(pipeline, StoragePipeline):
         raise TypeError(f"{type(pipeline).__name__} is not a port pipeline")
     wrapped = AgentPipeline.__new__(AgentPipeline)
-    wrapped.pipeline = pipeline
-    wrapped.fragment_uploads = 0
-    wrapped.staged_buffers = wrapped.staged_allocs = 0
-    wrapped._uploads = wrapped._allocs_mark = 0
-    wrapped._lock = threading.Lock()
+    wrapped._init_state(pipeline)
     return wrapped
 
 

@@ -45,9 +45,6 @@ MASK = 0x01010101                  # bit 0 of each packed byte
 GROUP = 32                         # bytes of a row one kernel thread takes
 # the delta swaps of the 32-byte bit transpose: (shift, mask) per stage
 SWAPS = ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F))
-# operations of one transpose of 8 words: 3 stages x 4 word pairs x
-# (shift, xor, and, xor, shift, xor), as csrc/gf_xor.cu issues them
-TRANSPOSE_OPS = 72
 BUNDLE = 4                         # ops the kernel issues together
 WINDOW = 64                        # unplaced ops the bundler looks over
 MAX_THREADS = 256                  # threads a kernel block holds
@@ -104,12 +101,6 @@ def threads_for(sched: XorSchedule) -> int:
         f"XOR schedule of {words(sched)} words a thread and {len(sched.ops)} "
         f"ops needs {smem_bytes(sched, MIN_THREADS)} bytes of shared memory "
         f"at {MIN_THREADS} threads a block; the kernel's limit is {SMEM_BYTES}")
-
-
-def kernel_ops(sched: XorSchedule) -> int:
-    """Integer operations the kernel spends on one 32-byte group: the
-    schedule's XORs and one transpose of each input and output row."""
-    return sched.n_xors + TRANSPOSE_OPS * ((sched.q8 + sched.r8) // 8)
 
 
 def uniform_ops(sched: XorSchedule) -> np.ndarray:

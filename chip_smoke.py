@@ -272,16 +272,13 @@ limit):
    reproduces the digest the test suite computes with the TPU package,
    under the dense strategy and under "xor";
 19. kernel times beside the plain versions' times and each kernel's
-   bound: bytes over 3.35 TB/s or integer operations over
-   SMs x 128 lanes x 1.98 GHz, whichever is larger (``gf_xor``'s
-   operations: per 32-byte group the schedule's XORs and the bit
-   transposes of every input and output row, ``rs_xor.kernel_ops``;
-   ``gf_apply``'s: per byte position and group of 4 output rows, 2
-   lookups and 2 XORs an input row and 2 byte permutes of the
-   transpose, ``gf_apply_ops``), with ``gf_apply`` at the RS(2,1) and
-   the RS(4,8) encode, and ``gf_xor`` beside ``gf_apply`` on the same
-   RS(4,8) encode in turns (the "auto" verdict); and what the card's
-   memory sustains: a 512 MiB device copy and a 1.5 GiB fill;
+   bound: the benchmark's contract work and peaks
+   (``portbench/roofline.py``), bytes over the HBM peak or the
+   algorithm's integer operations over the integer peak, whichever is
+   larger, with ``gf_apply`` at the RS(2,1) and the RS(4,8) encode, and
+   ``gf_xor`` beside ``gf_apply`` on the same RS(4,8) encode in turns
+   (the "auto" verdict); and what the card's memory sustains: a 512 MiB
+   device copy and a 1.5 GiB fill;
 20. native: the C++ host codec (``ops/rs_native.py``, built by g++ into
    ``build/native/``) on the timing phase's RS(4,8) input [32, 4, 4 MiB]:
    ``NativeCodec(4, 8)`` parity on 1 thread and on ``os.cpu_count()``
@@ -317,25 +314,12 @@ from __future__ import annotations
 
 import ctypes
 import json
-import re
 import statistics
 import subprocess
 import sys
 import time
 
 MIB = 1 << 20
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-# 32-bit integer peak = SMs x lanes dispatched per SM and clock x boost
-# clock: a Hopper SM's 4 schedulers dispatch one warp instruction (32
-# lanes) each a clock, and integer adds and multiply-adds also run as
-# IMAD on the 128 FP32 lanes beside the 64 INT32 ones, so 128 lanes a
-# clock is the most any mix reaches (64 INT32 lanes alone is no bound:
-# prf_blocks has run faster than its operations over that rate); 1.98
-# GHz is the H100 SXM boost clock (its 67 TFLOP/s FP32 rate is 132 SMs x
-# 128 FP32 lanes x 2 x 1.98 GHz; NVIDIA H100 architecture white paper)
-INT_LANES_PER_SM = 128
-BOOST_HZ = 1.98e9
-THREEFRY_OPS = 79                # 20 x (add, rotate, xor) + 5 key injections x 3 + 4
 TIMED_LAUNCHES = 20
 GRAPH_REPLAYS = 5
 
@@ -373,14 +357,6 @@ def rand_bytes(shape, seed: int, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                          generator=g)
-
-
-def gf_apply_ops(b: int, n: int, r: int, q: int) -> int:
-    """Integer operations of ``gf_apply`` on [b, q, n] -> [b, r, n]: per
-    byte position and group of 4 output rows, 2 table lookups and 2 XORs
-    for each input row, and 2 byte permutes (a 4 x 4 byte transpose is 8
-    for 4 positions)."""
-    return b * n * -(-r // 4) * (4 * q + 2)
 
 
 def event_ms(fn, runs: int) -> float:
@@ -3841,35 +3817,9 @@ def sim_phase(dev, zero_counts, counts, errs: dict, tag: str,
     return launches
 
 
-# the port's kernels by the names their __global__ functions carry on the
-# profiler's device timeline; the launch calls' categories (cudaLaunchKernel,
+# the launch calls' categories on the profiler's timeline (cudaLaunchKernel,
 # cuLaunchKernel)
-TRACE_KERNEL = re.compile(r"\b(gf_apply|podr2_tag|prf_blocks|gf_xor)_kernel\b")
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-
-
-def op_name(name: str, width: int = 48) -> str:
-    """A device event's name without its return type, template and
-    argument lists."""
-    name = name.replace("void ", "", 1).replace("(anonymous namespace)::", "")
-    return re.split(r"[<(]", name)[0].strip()[:width]
-
-
-def merged(spans) -> list:
-    """Sorted (start, end) spans merged where they overlap."""
-    out = []
-    for s, e in sorted(spans):
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
-        else:
-            out.append([s, e])
-    return out
-
-
-def covered(spans, lo: float, hi: float) -> float:
-    """Length of [lo, hi] that the merged ``spans`` cover."""
-    return sum(max(0.0, min(e, hi) - max(s, lo)) for s, e in spans)
 
 
 def profile_events(fn, cuda: bool, path: str) -> list:
@@ -4214,9 +4164,11 @@ def trace_report(events: list, ranges: dict, launches: dict) -> list:
     longest idle gaps."""
     import collections
 
+    from portbench import devtrace
+
     w = ranges["window"]
     w0, w1, main_tid = w["ts"], w["ts"] + w["dur"], w["tid"]
-    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    device = [e for e in events if e.get("cat") in devtrace.DEVICE_CATS]
     kernels = [e for e in device if e["cat"] == "kernel"]
     check(kernels, "trace: the profiler recorded no device kernel")
     by_corr = {e["args"]["correlation"]: e for e in device
@@ -4227,7 +4179,7 @@ def trace_report(events: list, ranges: dict, launches: dict) -> list:
 
     def by_kernel(names):
         return collections.Counter(m.group(1) for m in map(
-            TRACE_KERNEL.search, names) if m)
+            devtrace.PORT_KERNEL.search, names) if m)
 
     in_trace = by_kernel(e["name"] for e in kernels)
     paired = by_kernel(d["name"] for _, d in launch_of)
@@ -4249,14 +4201,14 @@ def trace_report(events: list, ranges: dict, launches: dict) -> list:
           f"launches on engine threads lie outside every cess:<op> range")
 
     # busy and idle share over the window
-    busy = merged((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy = devtrace.merged((e["ts"], e["ts"] + e["dur"]) for e in device)
     win = w1 - w0
-    busy_us = covered(busy, w0, w1)
+    busy_us = devtrace.covered(busy, w0, w1)
     top = collections.defaultdict(lambda: [0.0, 0])
     for e in device:
         if w0 <= e["ts"] <= w1:
-            top[op_name(e["name"])][0] += e["dur"]
-            top[op_name(e["name"])][1] += 1
+            top[devtrace.op_name(e["name"])][0] += e["dur"]
+            top[devtrace.op_name(e["name"])][1] += 1
 
     # the audit round: prove's op chain, prf_blocks, the host around them
     def one(name):
@@ -4295,20 +4247,14 @@ def trace_report(events: list, ranges: dict, launches: dict) -> list:
     prove_us = sum(d["dur"] for d in prove_dev)
     prf_us = sum(d["dur"] for d in prf_dev)
     other_us = sum(d["dur"] for d in audit_dev) - prove_us - prf_us
-    audit_busy = covered(merged((d["ts"], d["ts"] + d["dur"])
-                                for d in audit_dev), a0, a1)
+    audit_busy = devtrace.covered(devtrace.merged(
+        (d["ts"], d["ts"] + d["dur"]) for d in audit_dev), a0, a1)
     chain = collections.Counter()
     for d in prove_dev:
-        chain[op_name(d["name"], 40)] += d["dur"]
+        chain[devtrace.op_name(d["name"], 40)] += d["dur"]
 
     # the longest idle gaps and the host range each fell in
-    gaps, last = [], w0
-    for s, e in busy:
-        if s > last:
-            gaps.append((last, min(s, w1)))
-        last = max(last, e)
-    if last < w1:
-        gaps.append((last, w1))
+    gaps = devtrace.gaps(busy, w0, w1)
     host = [e for e in events if e["tid"] == main_tid
             and e.get("cat") in ("cpu_op", "user_annotation")]
 
@@ -4427,9 +4373,6 @@ def parent_turns(parent: str, cases, tag: str) -> None:
 
     csrc = Path(parent) / "cess_tpu_torch" / "csrc"
     lib = ctypes.CDLL(str(_build.build(csrc)))
-    # a tree without csrc/prf_blocks.cu keeps prf_blocks in podr2_tag.cu,
-    # where it sizes its own launch: no (threads, tile, grid) arguments
-    own_launch = not (csrc / "prf_blocks.cu").exists()
 
     def swapped(module, attr, name):
         mine = getattr(module, attr)
@@ -4437,9 +4380,6 @@ def parent_turns(parent: str, cases, tag: str) -> None:
             mine = mine[name]
         theirs = getattr(lib, name)
         theirs.restype = mine.restype
-        if name == "prf_blocks" and own_launch:
-            theirs.argtypes = mine.argtypes[:10] + mine.argtypes[-1:]
-            return mine, lambda *a: theirs(*a[:10], a[-1])
         theirs.argtypes = mine.argtypes
         return mine, theirs
 
@@ -4489,6 +4429,7 @@ def main(argv: list[str]) -> int:
     from cess_tpu_torch.ops import gf, podr2, prf, regen
     from cess_tpu_torch.ops import rs_kernel, podr2_kernel, rs_xor, xor_sched
     from cess_tpu_torch.ops.rs import TorchCodec
+    from portbench import roofline
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -4927,27 +4868,13 @@ def main(argv: list[str]) -> int:
             lambda: podr2_kernel.podr2_tag(w, prf_lm, frag_bytes),
             lambda: podr2_kernel.podr2_tag_plain(w, prf_lm, frag_bytes)),
     }
-    seg_bytes = b * cfg.segment_size
-    tag_out = nfrag * blocks * 2 * 4
+    # each call's (bytes, operations) from portbench/roofline.py
     bounds = {
-        # bytes: data in, systematic + parity out; ops: gf_apply_ops
-        "gf_apply": (seg_bytes + b * rows * n,
-                     gf_apply_ops(b, n, cfg.m, cfg.k)),
-        "gf_apply RS(4,8)": (bx * 4 * nx + bx * 12 * nx,
-                             gf_apply_ops(bx, nx, 8, 4)),
-        # bytes: ids in, field elements out; ops: 2 id folds per fragment,
-        # one block fold and one hash per limb per block
-        "prf_blocks": (nfrag * 16 + tag_out,
-                       (nfrag * 2 + nfrag * blocks * 3) * THREEFRY_OPS),
-        # bytes: fragment bytes, weights and PRF in, tags out; ops: one
-        # multiply and one add per byte and limb
-        "podr2_tag": (nfrag * n + w.numel() * 4 + 2 * tag_out,
-                      nfrag * n * 2 * 2),
-        # bytes: data in, systematic + parity out; ops: per 32-byte group
-        # the schedule's XORs and one 8-word bit transpose per input and
-        # output row
-        "gf_xor": (bx * 4 * nx + bx * 12 * nx,
-                   bx * -(-nx // rs_xor.GROUP) * rs_xor.kernel_ops(schedx)),
+        "gf_apply": roofline.gf_apply(b, cfg.k, cfg.m, n, True),
+        "gf_apply RS(4,8)": roofline.gf_apply(bx, 4, 8, nx, True),
+        "prf_blocks": roofline.prf_blocks(nfrag, blocks, 2, False),
+        "podr2_tag": roofline.podr2_tag(nfrag, blocks, podr2.BLOCK_BYTES, 2),
+        "gf_xor": roofline.gf_xor(bx, 4, 8, nx, True),
     }
     sources = {
         "gf_apply": ("cess_tpu_torch/csrc/gf_apply.cu",
@@ -4972,10 +4899,11 @@ def main(argv: list[str]) -> int:
         "gf_xor": rs48,
     }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    int_ops_per_s = sms * INT_LANES_PER_SM * BOOST_HZ
-    print(f"bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM; "
-          f"{int_ops_per_s / 1e12:.3f} T int32 ops/s ({sms} SMs x "
-          f"{INT_LANES_PER_SM} lanes x {BOOST_HZ / 1e9:.2f} GHz) {tag}")
+    print(f"bounds: {roofline.HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM; "
+          f"{roofline.INT_OPS_PER_S / 1e12:.3f} T int32 ops/s "
+          f"({roofline.SMS} SMs x {roofline.INT_LANES_PER_SM} lanes x "
+          f"{roofline.BOOST_HZ / 1e9:.2f} GHz; this card has {sms} SMs) "
+          f"{tag}")
     record = []
     for label in ("gf_apply", "gf_apply RS(4,8)", "podr2_tag", "prf_blocks",
                   "gf_xor"):
@@ -4986,9 +4914,7 @@ def main(argv: list[str]) -> int:
         plain_ms = event_ms(plain, 3)
         torch.cuda.empty_cache()
         nbytes, ops = bounds[label]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / int_ops_per_s * 1e3
-        bound_ms = max(t_bytes, t_ops)
+        bound_ms = roofline.seconds(nbytes, ops) * 1e3
         record.append({
             "name": name, "shape": shapes[label], "route": "cuda",
             "source": sources[name][0], "replaces": sources[name][1],
@@ -5008,7 +4934,8 @@ def main(argv: list[str]) -> int:
             "max_abs_err": errs[name],
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_by": ("bytes" if roofline.seconds(nbytes, 0)
+                         >= roofline.seconds(0, ops) else "operations"),
             "library_ms": None})
         print(f"time {label}: {ms:.4f} ms a call (device {device_ms:.4f}), "
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
@@ -5021,8 +4948,7 @@ def main(argv: list[str]) -> int:
              (dense_run, runs["gf_xor"][0], runs["gf_xor"][0], dense_run)]
     dense_ms = statistics.median([turns[0], turns[3]])
     xor_ms = statistics.median([turns[1], turns[2]])
-    dense_bound = max((bx * 4 * nx + bx * 12 * nx) / HBM_BYTES_PER_S,
-                      gf_apply_ops(bx, nx, 8, 4) / int_ops_per_s) * 1e3
+    dense_bound = roofline.seconds(*bounds["gf_apply RS(4,8)"]) * 1e3
     print(f"auto verdict at RS(4,8) [{bx}, 4, {nx}] encode: gf_xor "
           f"{turns[1]:.4f}/{turns[2]:.4f} ms, gf_apply {turns[0]:.4f}/"
           f"{turns[3]:.4f} ms (turns dense, xor, xor, dense; bounds "

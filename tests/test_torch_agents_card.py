@@ -11,7 +11,6 @@ so it runs where only the port is installed:
 The CPU tests of the same code, against the JAX package, are
 ``test_torch_offchain.py`` and ``test_torch_sim.py``.
 """
-import threading
 import warnings
 
 import numpy as np
@@ -135,11 +134,10 @@ def assert_same_upload(got, want):
     assert got.file_hash == want.file_hash and got.fetches == 1
 
 
-# (size, input as bytes, segments staged): the host copies the segments
-# of a padded file and of read-only bytes (the gateway's input), not of a
-# writable array of whole segments
-UPLOAD_INPUTS = [(3 * SEG - 1000, False, True), (4 * SEG, False, False),
-                 (4 * SEG, True, True)]
+# (size, input as bytes): the host copies the segments of a padded file
+# and of read-only bytes (the gateway's input), not of a writable array
+# of whole segments
+UPLOAD_INPUTS = [(3 * SEG - 1000, False), (4 * SEG, False), (4 * SEG, True)]
 UPLOAD_IDS = ["padded", "whole-segments", "whole-segments-bytes"]
 
 
@@ -148,35 +146,30 @@ def upload_input(rng, size, as_bytes):
     return data.tobytes() if as_bytes else data
 
 
-@pytest.mark.parametrize("size,as_bytes,staged", UPLOAD_INPUTS,
-                         ids=UPLOAD_IDS)
+@pytest.mark.parametrize("size,as_bytes", UPLOAD_INPUTS, ids=UPLOAD_IDS)
 def test_upload_stages_in_page_locked_memory_and_matches_the_cpu(
-        cuda_device, size, as_bytes, staged):
+        cuda_device, size, as_bytes):
     pipe, cpu = pipelines(cuda_device)
     data = upload_input(np.random.default_rng(11), size, as_bytes)
     up, attrs = traced_upload(pipe, data)
     assert_same_upload(up, offchain.upload_batch(cpu, data))
     assert page_locked(up.fragments) and not up.fragments.flags.writeable
     assert attrs["pinned"] is True and attrs["host_allocs"] >= 0
-    assert pipe.staged_buffers == (2 if staged else 1)
-    assert pipe.staged_allocs == attrs["host_allocs"]
     # RS(2,1): each segment and its data row 1 hashed from the host's
     # segments before the fetch, its parity row after: 3 of 4 bytes early
     assert attrs["hashed_bytes"] == 4 * up.fragments.size // 3
     assert 4 * attrs["early_bytes"] == 3 * attrs["hashed_bytes"]
 
 
-@pytest.mark.parametrize("size,as_bytes,staged", UPLOAD_INPUTS,
-                         ids=UPLOAD_IDS)
+@pytest.mark.parametrize("size,as_bytes", UPLOAD_INPUTS, ids=UPLOAD_IDS)
 def test_repeat_upload_of_a_size_takes_no_new_page_locked_block(
-        cuda_device, size, as_bytes, staged):
+        cuda_device, size, as_bytes):
     pipe, _ = pipelines(cuda_device)
     rng = np.random.default_rng(12)
     first, _ = traced_upload(pipe, upload_input(rng, size, as_bytes))
     del first                               # its blocks go back to the cache
     up, attrs = traced_upload(pipe, upload_input(rng, size, as_bytes))
     assert attrs["host_allocs"] == 0 and page_locked(up.fragments)
-    assert pipe.staged_buffers == (4 if staged else 2)
 
 
 def test_kept_upload_keeps_its_bytes_through_later_uploads(cuda_device):
@@ -195,37 +188,6 @@ def test_kept_upload_keeps_its_bytes_through_later_uploads(cuda_device):
     assert np.array_equal(kept.fragments, frags)
     assert np.array_equal(kept.tags, tags)
     assert_same_upload(kept, offchain.upload_batch(cpu, data))
-
-
-def test_uploads_side_by_side_count_each_page_locked_block_once(
-        cuda_device):
-    """Four threads upload kept files of distinct sizes at once, so each
-    takes blocks of its own while the others run: ``staged_allocs``
-    rises by the allocations made, not by each upload's count of all of
-    them."""
-    pipe, cpu = pipelines(cuda_device)
-    rng = np.random.default_rng(15)
-    datas = [rng.integers(0, 256, n * SEG - 9, np.uint8) for n in (1, 2, 3, 4)]
-    before = torch.cuda.host_memory_stats()["num_host_alloc"]
-    barrier = threading.Barrier(len(datas))
-    ups = [None] * len(datas)
-
-    def client(i):
-        barrier.wait()
-        ups[i] = offchain.upload_batch(pipe, datas[i])
-
-    threads = [threading.Thread(target=client, args=(i,))
-               for i in range(len(datas))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(120)
-    made = torch.cuda.host_memory_stats()["num_host_alloc"] - before
-    assert all(up is not None for up in ups)
-    assert pipe.staged_buffers == 2 * len(datas)
-    assert pipe.staged_allocs == made
-    for up, data in zip(ups, datas):
-        assert_same_upload(up, offchain.upload_batch(cpu, data))
 
 
 def test_padded_tail_is_zero_in_a_block_that_held_another_file(cuda_device):

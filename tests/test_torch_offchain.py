@@ -362,44 +362,30 @@ def test_kept_uploads_on_the_cpu_share_no_memory():
 
 
 @pytest.mark.parametrize("size", [2 * SEG, 2 * SEG + 5])
-def test_agent_pipeline_stages_no_buffer_on_the_cpu(size):
+def test_wrapped_pipeline_upload_stages_nothing_page_locked_on_the_cpu(size):
+    """A gateway on a port ``StoragePipeline`` wraps it as an
+    ``AgentPipeline``: its uploads stage nothing page-locked on the CPU
+    and give the identities of a direct upload."""
     _, pipe = agent_pipelines()
-    assert pipe.staged_buffers == pipe.staged_allocs == 0
-    for seed in (50, 51):
-        offchain.upload_batch(pipe, rnd(size, seed).tobytes())
-    assert pipe.staged_buffers == pipe.staged_allocs == 0
+    data = rnd(size, 50).tobytes()
+    want = offchain.upload_batch(pipe, data)
     gateway = offchain.OssGateway(StandInNode(), "gw0", pipe.pipeline)
-    assert gateway.pipeline.staged_buffers == 0
-    assert gateway.pipeline.staged_allocs == 0
-
-
-def test_overlapping_uploads_count_each_page_locked_block_once(monkeypatch):
-    """``staged_allocs`` counts the host allocator's blocks made while any
-    upload runs, once each, however the uploads overlap; blocks made
-    between uploads are nobody's."""
-    made = [0]
-    monkeypatch.setattr(offchain, "_host_allocs", lambda device: made[0])
-    _, pipe = agent_pipelines()
-    a, b = pipe._counting_allocs(), pipe._counting_allocs()
-    a.__enter__()
-    made[0] += 2            # a's
-    b.__enter__()
-    made[0] += 3            # a's or b's: counted once
-    a.__exit__(None, None, None)
-    made[0] += 1            # b's
-    b.__exit__(None, None, None)
-    made[0] += 7            # between uploads
-    with pipe._counting_allocs():
-        made[0] += 4
-    assert pipe.staged_allocs == 2 + 3 + 1 + 4
-    with pytest.raises(RuntimeError):
-        with pipe._counting_allocs():
-            made[0] += 5
-            raise RuntimeError("an upload that fails")
-    made[0] += 6            # after it: nobody's
-    with pipe._counting_allocs():
-        pass
-    assert pipe.staged_allocs == 2 + 3 + 1 + 4 + 5
+    assert gateway.pipeline is not pipe
+    assert gateway.pipeline.pipeline is pipe.pipeline
+    assert gateway.pipeline.fragment_uploads == 0
+    tracer = trace.Tracer()
+    with trace.armed(tracer):
+        file_hash = gateway.upload("alice", "photos", "f.bin", data)
+    (upload,) = [s for s in tracer.finished()
+                 if s["name"] == "offchain.upload"]
+    assert upload["attrs"]["pinned"] is False
+    assert upload["attrs"]["host_allocs"] == 0
+    got = gateway.last_upload
+    assert file_hash == got.file_hash == want.file_hash
+    assert got.segment_hashes == want.segment_hashes
+    assert got.fragment_hashes == want.fragment_hashes
+    assert np.array_equal(got.ids, want.ids)
+    assert np.array_equal(got.tags, want.tags)
 
 
 @pytest.mark.parametrize("size", [2 * SEG, 2 * SEG + 5])
