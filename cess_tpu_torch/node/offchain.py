@@ -53,6 +53,7 @@ import hashlib
 import importlib
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -406,6 +407,12 @@ class Upload:
     Through an engine, "encode.launch" holds the engine's whole round
     trip (queue, stacking, kernel, the batch's synchronize) and
     "fetch.wait" is about 0.
+    Then the ``HASH_CLOCKS``, the upload's share of the hashing pool:
+    "hash.queue", the part of "hash" before the last of the upload's
+    hash tasks started (0 when every task had started by the time "hash"
+    began; the rest of "hash" waits on tasks already running), and
+    "hash.busy", the worker-seconds its hash tasks ran, the segments'
+    and data rows' passes and the parity rows' alike.
     ``engine``: the ``Receipt`` of each engine request that served the
     upload, encode then tag; empty without an engine."""
 
@@ -426,6 +433,8 @@ UPLOAD_STAGES = ("pad", "encode", "encode.h2d", "encode.launch", "fetch",
                  "fetch.wait", "fetch.copy", "hash", "tag", "finish")
 #: ``Upload.seconds``' keys after the stages: an engine's queue waits
 ENGINE_CLOCKS = ("encode.queue", "tag.queue")
+#: ``Upload.seconds``' keys after ``ENGINE_CLOCKS``: the hashing pool's
+HASH_CLOCKS = ("hash.queue", "hash.busy")
 
 
 _HASH_THREADS = min(8, os.cpu_count() or 1)
@@ -474,11 +483,14 @@ class _UploadHashes:
     until ``collect`` has waited for it; leaving the block cancels what
     has not started.
     ``hashed_bytes``: the bytes submitted; ``early_bytes``: those of
-    them submitted before the fetch."""
+    them submitted before the fetch. ``ran``: the ``perf_counter``
+    (start, end) of each task that ran, appended on its worker thread
+    (a cancelled task never runs)."""
 
     def __init__(self, cfg: PipelineConfig):
         self.k, self.n = cfg.k, cfg.fragment_size
         self.hashed_bytes = self.early_bytes = 0
+        self.ran: list[tuple[float, float]] = []
         self._pool = _hashers()
         self._segments: list[list] = []     # per segment: its futures
         self._futures: list = []
@@ -491,9 +503,16 @@ class _UploadHashes:
             f.cancel()
 
     def _submit(self, fn, *args):
-        f = self._pool.submit(fn, *args)
+        f = self._pool.submit(self._timed, fn, *args)
         self._futures.append(f)
         return f
+
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.ran.append((t0, time.perf_counter()))
 
     def segment(self, segment: np.ndarray) -> None:
         """Hash one segment and its data rows now."""
@@ -519,6 +538,15 @@ class _UploadHashes:
             segment_hashes.append(segment_hash)
             frag_hashes.append((row0, *(f.result() for f in data + rest)))
         return frag_hashes, segment_hashes
+
+    def clocks(self, began: float, wait: float) -> tuple[float, float]:
+        """``HASH_CLOCKS`` of a wait for every hash that ``began`` at that
+        ``perf_counter`` and lasted ``wait`` seconds, read once ``collect``
+        has returned: (the part of it before the last task started, the
+        tasks' summed run time)."""
+        last = max((t0 for t0, _ in self.ran), default=began)
+        return (min(max(last - began, 0.0), wait),
+                sum(t1 - t0 for t0, t1 in self.ran))
 
 
 def upload_batch(pipeline: AgentPipeline, data, *,
@@ -554,7 +582,8 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     Through an engine (``pipeline.engine``) the upload collects the
     ``Receipt`` of each of its requests (batch id, real and bucket rows)
     into ``Upload.engine`` and their queue waits into ``seconds``
-    (``ENGINE_CLOCKS``)."""
+    (``ENGINE_CLOCKS``). Every upload clocks its hash tasks on the pool
+    into ``seconds`` (``HASH_CLOCKS``)."""
     cfg = pipeline.config
     size = memoryview(data).nbytes
     rows = cfg.k + cfg.m
@@ -562,7 +591,7 @@ def upload_batch(pipeline: AgentPipeline, data, *,
     pinned = pipeline.device.type == "cuda"
     allocs_before = _host_allocs(pipeline.device)
     named = {} if file is None else {"file": file}
-    seconds = dict.fromkeys(UPLOAD_STAGES + ENGINE_CLOCKS, 0.0)
+    seconds = dict.fromkeys(UPLOAD_STAGES + ENGINE_CLOCKS + HASH_CLOCKS, 0.0)
     engine = pipeline.engine
     with trace.span("offchain.upload", sys="offchain", **named,
                     segments=nseg, size=size) as span, \
@@ -605,6 +634,7 @@ def upload_batch(pipeline: AgentPipeline, data, *,
                              "fetch.copy"):
                 frags = np.asarray(handle)
         with trace.stage("offchain.upload.hash", seconds, "hash"):
+            hash_began = time.perf_counter()
             frag_hashes, segment_hashes = hashes.collect(frags)
             ids = _ids([h for fs in frag_hashes for h in fs]).reshape(
                 frags.shape[0], rows, 2)
@@ -615,6 +645,8 @@ def upload_batch(pipeline: AgentPipeline, data, *,
                                                for h in fs))
             for rc in receipts:
                 seconds[f"{rc.cls}.queue"] += rc.queued
+            seconds["hash.queue"], seconds["hash.busy"] = hashes.clocks(
+                hash_began, seconds["hash"])
             up = Upload(frags, tags, ids, frag_hashes, segment_hashes,
                         file_hash, handle.fetches, seconds, tuple(receipts))
             allocs = _host_allocs(pipeline.device) - allocs_before

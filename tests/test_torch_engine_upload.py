@@ -163,7 +163,9 @@ def test_upload_receipts_and_queue_clocks():
     for up in (u for client in ups for u in client):
         s = up.seconds
         assert list(s) == list(offchain.UPLOAD_STAGES
-                               + offchain.ENGINE_CLOCKS)
+                               + offchain.ENGINE_CLOCKS
+                               + offchain.HASH_CLOCKS)
+        assert 0.0 <= s["hash.queue"] <= s["hash"] and s["hash.busy"] > 0
         assert all(v >= 0 for v in s.values())
         assert [rc.cls for rc in up.engine] == ["encode", "tag"]
         enc, tag = up.engine

@@ -10,10 +10,12 @@ compared; the whole agents on the port run in tests/test_torch_sim.py.
 The card's run of the same steps is tests/test_torch_agents_card.py.
 """
 import hashlib
+import os
 import sys
 import threading
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -225,7 +227,8 @@ def test_upload_batch_matches_gateway_upload(routed):
     assert set(up.seconds) == {"pad", "encode", "encode.h2d",
                                "encode.launch", "fetch", "fetch.wait",
                                "fetch.copy", "hash", "tag", "finish",
-                               "encode.queue", "tag.queue"}
+                               "encode.queue", "tag.queue", "hash.queue",
+                               "hash.busy"}
     # the engine's requests, encode then tag; none on the direct path
     assert [rc.cls for rc in up.engine] == (
         ["encode", "tag"] if routed == "engine" else [])
@@ -239,7 +242,8 @@ def test_upload_stage_parts_sum_to_their_stage():
     _, pipe = agent_pipelines()
     up = offchain.upload_batch(pipe, rnd(2 * SEG + 5, 41).tobytes())
     s = up.seconds
-    assert list(s) == list(offchain.UPLOAD_STAGES + offchain.ENGINE_CLOCKS)
+    assert list(s) == list(offchain.UPLOAD_STAGES + offchain.ENGINE_CLOCKS
+                           + offchain.HASH_CLOCKS)
     assert s["encode"] == s["encode.h2d"] + s["encode.launch"]
     assert s["fetch"] == s["fetch.wait"] + s["fetch.copy"]
     assert all(v >= 0 for v in s.values()) and s["hash"] > 0
@@ -521,6 +525,124 @@ def test_uploads_side_by_side_on_the_shared_pool_keep_their_own_hashes():
                 assert_hashed_after_the_fetch(up, padded_segments(d, SEG))
     finally:
         sys.setswitchinterval(switch)
+
+
+def slowed(fn, delay):
+    def slow(*args):
+        time.sleep(delay)
+        return fn(*args)
+    return slow
+
+
+@pytest.fixture
+def hash_pool(monkeypatch):
+    """``pool(threads)`` makes the process's hashing pool one of that many
+    threads for the test."""
+    made = []
+
+    def pool(threads):
+        made.append(ThreadPoolExecutor(threads))
+        monkeypatch.setattr(offchain, "_hash_pool", (os.getpid(), made[-1]))
+
+    yield pool
+    for p in made:
+        p.shutdown(wait=True)
+
+
+#: threads, the hashes slowed ("segment": each segment's own pass, "row":
+#: every row's), segments, through the engine
+HASH_POOL_CASES = {
+    # one thread, every hash slowed: the parity rows queue behind the
+    # segments' passes
+    "queued": (1, ("segment", "row"), 2, False),
+    # a pool of free threads, one slow segment pass: every task starts at
+    # once and "hash" waits on the running pass
+    "running": (8, ("segment",), 1, False),
+    # the worker-seconds of every task, early and parity alike
+    "busy": (8, ("segment", "row"), 3, False),
+    "engine": (1, ("segment", "row"), 2, True),
+}
+DELAY = {"queued": 0.05, "running": 0.3, "busy": 0.02, "engine": 0.05}
+
+
+@pytest.mark.parametrize("case", HASH_POOL_CASES)
+def test_upload_clocks_its_hash_tasks_on_the_pool(case, hash_pool,
+                                                  monkeypatch):
+    """Planted waits: ``hash.queue`` is the part of "hash" before the
+    upload's last hash task started, ``hash.busy`` its tasks' run time."""
+    threads, slow, segments, routed = HASH_POOL_CASES[case]
+    delay = DELAY[case]
+    hash_pool(threads)
+    if "segment" in slow:
+        monkeypatch.setattr(offchain, "_segment_and_first_row",
+                            slowed(offchain._segment_and_first_row, delay))
+    if "row" in slow:
+        monkeypatch.setattr(offchain, "fragment_hash",
+                            slowed(offchain.fragment_hash, delay))
+    eng = None
+    pipe = geometry_pipeline(K, M)
+    if routed:
+        eng = make_engine(K, M, rs_backend="cpu", audit_backend="cpu",
+                          podr2_key=pipe.podr2_key)
+        pipe.engine = eng
+    data = rnd(segments * SEG - 100, 66)
+    try:
+        up = offchain.upload_batch(pipe, data)
+    finally:
+        if eng is not None:
+            eng.close()
+    assert_hashed_after_the_fetch(up, padded_segments(data, SEG))
+    s = up.seconds
+    assert list(s)[-2:] == list(offchain.HASH_CLOCKS)
+    assert 0.0 <= s["hash.queue"] <= s["hash"]
+    # a segment's pass and each of its k - 1 data and m parity rows
+    tasks = segments * ((K - 1 + M) if "row" in slow else 0) + segments
+    assert s["hash.busy"] >= delay * tasks
+    if case in ("queued", "engine"):
+        assert s["hash.queue"] >= delay
+    if case == "running":
+        assert s["hash.queue"] <= 0.05
+        assert s["hash"] - s["hash.queue"] >= delay / 2
+    if routed:
+        assert [rc.cls for rc in up.engine] == ["encode", "tag"]
+
+
+def test_upload_hashes_count_only_tasks_that_ran(hash_pool):
+    """Leaving the block cancels the tasks not yet started: they never
+    run, so ``ran`` holds none of them. Tasks that ran on many threads at
+    once are each counted once."""
+    hash_pool(1)
+    release = threading.Event()
+    pool = offchain._hashers()
+    pool.submit(release.wait)
+    cfg = PipelineConfig(k=K, m=M, segment_size=SEG)
+    with offchain._UploadHashes(cfg) as hashes:
+        hashes.segment(rnd(SEG, 67))
+        hashes.segment(rnd(SEG, 68))
+    release.set()
+    pool.shutdown(wait=True)
+    assert hashes.ran == []
+    hash_pool(1)
+    with offchain._UploadHashes(cfg) as hashes:
+        hashes.segment(rnd(SEG, 69))
+        hashes.collect(np.zeros((1, K + M, SEG // K), np.uint8))
+        queue, busy = hashes.clocks(time.perf_counter(), 1.0)
+    assert len(hashes.ran) == K + M and queue == 0.0
+    assert busy == pytest.approx(sum(t1 - t0 for t0, t1 in hashes.ran))
+    assert all(t0 <= t1 for t0, t1 in hashes.ran)
+    # more threads than cores, switching often: no append is lost
+    hash_pool(4 * (os.cpu_count() or 1))
+    segments = 40
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with offchain._UploadHashes(cfg) as hashes:
+            for i in range(segments):
+                hashes.segment(rnd(SEG, 70 + i))
+            hashes.collect(np.zeros((segments, K + M, SEG // K), np.uint8))
+    finally:
+        sys.setswitchinterval(switch)
+    assert len(hashes.ran) == segments * (K + M)
 
 
 def test_corrupted_systematic_copy_keeps_the_segment_slices_identity(
